@@ -1,0 +1,31 @@
+"""Carry state across from the JAX package, through plain numpy.
+
+The JAX side (``repro.core.forest_to_numpy``, ``QmcStreams.snapshot()``)
+produces numpy dicts; these functions turn them into the port's objects, so
+``repro_torch`` itself never imports ``repro``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.forest import RadixForest
+from repro_torch.device import to_device
+
+_FIELDS = {
+    "cdf": torch.float32,
+    "table": torch.int32,
+    "left": torch.int32,
+    "right": torch.int32,
+    "cell_first": torch.int32,
+    "fallback": torch.bool,
+}
+
+
+def forest_from_numpy(d: dict, device="cuda") -> RadixForest:
+    """The dict of ``forest_to_numpy`` -> a port :class:`RadixForest` on
+    ``device`` (same field names, dtypes and values)."""
+    return RadixForest(**{
+        k: to_device(np.ascontiguousarray(d[k]), device, dtype)
+        for k, dtype in _FIELDS.items()
+    })
