@@ -36,6 +36,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+SIDE = 1024                 # env_map_2d(SIDE, SIDE): n = m = 2^20 intervals
+N_DRAWS = 1 << 24           # uniforms through sample_forest
 
 
 def check(cond, what: str) -> None:
@@ -43,30 +45,20 @@ def check(cond, what: str) -> None:
         raise RuntimeError(f"chip_smoke: check failed: {what}")
 
 
-def cuda_ms(fn, reps: int, device) -> float:
-    """Median time of ``fn`` over ``reps`` runs: CUDA events on the card,
-    the host clock (after a synchronize) elsewhere. One warm-up run."""
+def cuda_ms(fn, reps: int) -> float:
+    """Median time of ``fn`` over ``reps`` runs, with CUDA events, after one
+    warm-up run."""
     fn()
     times = []
     for _ in range(reps):
-        if device.type == "cuda":
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        else:
-            t = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t) * 1e3)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
     return statistics.median(times)
-
-
-def sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize()
 
 
 def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
@@ -77,6 +69,48 @@ def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def descent_bytes(f, xi: torch.Tensor) -> int:
+    """Bytes ``forest_sample`` must move on this data: each uniform read and
+    each index written once, plus each table entry that some lane reads
+    (the guide entry of every touched cell; ``fallback`` only in cells
+    holding a tree; ``cell_first`` and the bisected ``cdf`` entries only in
+    flagged cells; ``cdf`` and one child per level along each descent)."""
+    from repro_torch.core.sample import _guide_cell
+
+    seen = {k: torch.zeros(t.numel(), dtype=torch.bool, device=xi.device)
+            for k, t in f._asdict().items()}
+    g = _guide_cell(xi, f.table.numel())
+    seen["table"][g] = True
+    j = f.table[g].long()
+    tree = j >= 0
+    seen["fallback"][g[tree]] = True
+    flag = tree & f.fallback[g]
+    gf, x = g[flag], xi[flag]
+    seen["cell_first"][gf] = True
+    seen["cell_first"][gf + 1] = True
+    lo, hi = f.cell_first[gf].long(), f.cell_first[gf + 1].long()
+    for _ in range(32):
+        mid = (lo + hi + 1) >> 1
+        seen["cdf"][mid] = True
+        up = x >= f.cdf[mid]
+        lo, hi = torch.where(up, mid, lo), torch.where(up, hi, mid - 1)
+    j[flag] = ~lo
+    x = xi
+    while True:
+        live = j >= 0
+        if not bool(live.any()):
+            break
+        j, x = j[live], x[live]
+        seen["cdf"][j] = True
+        go_left = x < f.cdf[j]
+        seen["left"][j[go_left]] = True
+        seen["right"][j[~go_left]] = True
+        j = torch.where(go_left, f.left[j], f.right[j]).long()
+    table_bytes = sum(int(seen[k].sum()) * f[i].element_size()
+                      for i, k in enumerate(f._fields))
+    return table_bytes + xi.numel() * 8
 
 
 def kernel_phase(device, weights: np.ndarray, m: int, n_draws: int, gen):
@@ -110,12 +144,12 @@ def kernel_phase(device, weights: np.ndarray, m: int, n_draws: int, gen):
             print(f"cdf_scan {name}{tuple(x.shape)} softmax={softmax} "
                   f"normalize={normalize}: max |err| / row total = "
                   f"{float((err / total).max()):.3e}", flush=True)
-    sync(device)
-    scan_ms = cuda_ms(lambda: cdf_scan(rows, softmax=False, normalize=False), 20, device)
-    scan_plain = cuda_ms(lambda: ref.ref_cdf_scan(rows, False, False), 20, device)
-    scan_lib = cuda_ms(lambda: torch.cumsum(rows, dim=1), 20, device)
+    torch.cuda.synchronize()
+    scan_ms = cuda_ms(lambda: cdf_scan(rows, softmax=False, normalize=False), 20)
+    scan_plain = cuda_ms(lambda: ref.ref_cdf_scan(rows, False, False), 20)
+    scan_lib = cuda_ms(lambda: torch.cumsum(rows, dim=1), 20)
     for name, x, sm in (("logits", logits, True), ("positive", pos, False)):
-        t = cuda_ms(lambda: cdf_scan(x, softmax=sm), 20, device)
+        t = cuda_ms(lambda: cdf_scan(x, softmax=sm), 20)
         print(f"cdf_scan {name}{tuple(x.shape)} softmax={sm}: {t:.4f} ms", flush=True)
     rows_raw["cdf_scan"] = dict(
         max_abs_err=scan_err, ms=scan_ms, plain_ms=scan_plain,
@@ -126,16 +160,16 @@ def kernel_phase(device, weights: np.ndarray, m: int, n_draws: int, gen):
     data = C.lower_bounds(cdf).contiguous()
     got, want = forest_delta(data, m), ref.ref_forest_delta(data, m)
     check(torch.equal(got, want), "forest_delta bit-exact")
-    if device.type == "cuda":  # the kernel alone, without the int64 widening
-        out32 = torch.empty(data.numel() - 1, dtype=torch.int32, device=device)
-        lib, stream = _build.library(), _build.stream_of(data)
-        alone = cuda_ms(lambda: lib.rt_forest_delta(
-            data.data_ptr(), out32.data_ptr(), data.numel(), m, stream), 20, device)
-        print(f"forest_delta kernel alone (uint32 out): {alone:.4f} ms", flush=True)
+    # The kernel alone, without the wrapper's int64 widening.
+    out32 = torch.empty(data.numel() - 1, dtype=torch.int32, device=device)
+    lib, stream = _build.library(), _build.stream_of(data)
+    alone = cuda_ms(lambda: lib.rt_forest_delta(
+        data.data_ptr(), out32.data_ptr(), data.numel(), m, stream), 20)
+    print(f"forest_delta kernel alone (uint32 out): {alone:.4f} ms", flush=True)
     rows_raw["forest_delta"] = dict(
         max_abs_err=float((got - want).abs().max()),
-        ms=cuda_ms(lambda: forest_delta(data, m), 20, device),
-        plain_ms=cuda_ms(lambda: ref.ref_forest_delta(data, m), 20, device),
+        ms=cuda_ms(lambda: forest_delta(data, m), 20),
+        plain_ms=cuda_ms(lambda: ref.ref_forest_delta(data, m), 20),
         library_ms=None,
         bound=bound_ms(nbytes(data) + got.numel() * 8))
     print(f"forest_delta n={data.numel()}: bit-exact", flush=True)
@@ -169,10 +203,10 @@ def kernel_phase(device, weights: np.ndarray, m: int, n_draws: int, gen):
     cdf1 = f.cdf[1:].contiguous()
     rows_raw["forest_sample"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: forest_sample(*args, xi), 20, device),
-        plain_ms=cuda_ms(lambda: ref.ref_forest_sample(*args, xi), 5, device),
-        library_ms=cuda_ms(lambda: torch.searchsorted(cdf1, xi, right=True), 20, device),
-        bound=bound_ms(nbytes(*args, xi) + n_draws * 4))
+        ms=cuda_ms(lambda: forest_sample(*args, xi), 20),
+        plain_ms=cuda_ms(lambda: ref.ref_forest_sample(*args, xi), 5),
+        library_ms=cuda_ms(lambda: torch.searchsorted(cdf1, xi, right=True), 20),
+        bound=bound_ms(descent_bytes(f, xi)))
     return rows_raw
 
 
@@ -187,18 +221,16 @@ def stage_times(device, weights: np.ndarray, m: int) -> dict:
     cells = F._cells(data, m)
     d = F._separator_distances(data, m)
     return {
-        "scan": cuda_ms(lambda: C.build_cdf(w, device=device), 5, device),
-        "distances": cuda_ms(lambda: F._separator_distances(data, m), 5, device),
-        "cell_trees": cuda_ms(lambda: F._build_cell_trees(data, d, cells, m=m), 5, device),
-        "total": cuda_ms(lambda: F.build_forest(w, m, device=device), 5, device),
+        "scan": cuda_ms(lambda: C.build_cdf(w, device=device), 5),
+        "distances": cuda_ms(lambda: F._separator_distances(data, m), 5),
+        "cell_trees": cuda_ms(lambda: F._build_cell_trees(data, d, cells, m=m), 5),
+        "total": cuda_ms(lambda: F.build_forest(w, m, device=device), 5),
     }
 
 
 def device_profile(device, weights: np.ndarray, m: int, n_draws: int, gen) -> None:
     """Device busy share and the heaviest kernels of one build_forest and
-    one sample_forest call, from torch.profiler (CUDA devices only)."""
-    if device.type != "cuda":
-        return
+    one sample_forest call, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.forest import build_forest
@@ -210,11 +242,11 @@ def device_profile(device, weights: np.ndarray, m: int, n_draws: int, gen) -> No
     calls = (("build_forest", lambda: build_forest(w, m, device=device)),
              ("sample_forest", lambda: sample_forest(forest, xi, device=device)))
     for name, fn in calls:
-        sync(device)
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             fn()
-            sync(device)
+            torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
         kernels = [e for e in prof.key_averages()
                    if str(getattr(e, "device_type", "")).endswith("CUDA")]
@@ -244,15 +276,15 @@ def main_path(device, weights: np.ndarray, m: int, n_draws: int, gen) -> None:
     n = weights.shape[0]
     t = time.perf_counter()
     forest = build_forest(weights, m, device=device)
-    sync(device)
+    torch.cuda.synchronize()
     print(f"build_forest n={n} m={m}: {(time.perf_counter() - t) * 1e3:.3f} ms "
           f"(host clock, first call)", flush=True)
 
     xi = torch.rand(n_draws, generator=gen, device=device)
-    sync(device)
+    torch.cuda.synchronize()
     t = time.perf_counter()
     idx = sample_forest(forest, xi, device=device)
-    sync(device)
+    torch.cuda.synchronize()
     dt = time.perf_counter() - t
     print(f"sample_forest {n_draws} draws: {dt * 1e3:.3f} ms, "
           f"{n_draws / dt:.6e} draws/s (host clock, first call)", flush=True)
@@ -272,7 +304,7 @@ def main_path(device, weights: np.ndarray, m: int, n_draws: int, gen) -> None:
         np.add.at(expect_counters, slots, 1)
         check(np.array_equal(sampler.streams.counters.astype(np.int64),
                              expect_counters), f"serving counters, call {call}")
-    sync(device)
+    torch.cuda.synchronize()
 
     # Checks (after the counted run): forest vs plain CPU build from the
     # same CDF bits, draw brackets, chi-square, serving vs sample_binary.
@@ -308,20 +340,17 @@ def main_path(device, weights: np.ndarray, m: int, n_draws: int, gen) -> None:
           f"sample_binary at the same QMC points; counters exact", flush=True)
 
 
-def run(device="cuda", log2n: int = 20, log2_draws: int = 24) -> dict:
-    """The whole smoke run; returns the kernels record. ``device='cpu'``
-    with small sizes rehearses the flow on the plain versions."""
+def run() -> dict:
+    """The whole smoke run on the card; returns the kernels record."""
     from repro_torch.configs.paper_workloads import env_map_2d
-    from repro_torch.device import resolve
     from repro_torch.kernels.cdf_scan import cdf_scan
     from repro_torch.kernels.forest_delta import forest_delta
     from repro_torch.kernels.forest_sample import forest_sample
 
-    device = resolve(device)
-    side = 1 << (log2n // 2)
-    weights = env_map_2d(side, (1 << log2n) // side, seed=0).reshape(-1).astype(np.float32)
+    device = torch.device("cuda")
+    weights = env_map_2d(SIDE, SIDE, seed=0).reshape(-1).astype(np.float32)
     m = weights.shape[0]
-    n_draws = 1 << log2_draws
+    n_draws = N_DRAWS
     gen = torch.Generator(device=device).manual_seed(0)
 
     raw = kernel_phase(device, weights, m, n_draws, gen)
@@ -353,9 +382,8 @@ def run(device="cuda", log2n: int = 20, log2_draws: int = 24) -> dict:
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"],
         })
-    if device.type == "cuda":
-        for k in kernels:
-            check(k["launches"] > 0, f"{k['name']} launched on the main path")
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} launched on the main path")
     return {"kernels": kernels}
 
 
@@ -381,7 +409,7 @@ def main() -> int:
     _build.library()
     print(f"kernel library built and loaded in {time.perf_counter() - t:.3f} s", flush=True)
 
-    record = run("cuda")
+    record = run()
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,12 +6,15 @@ library is built at first use into ``build/repro_torch/<hash>/`` at the root
 of the checkout (listed in ``.gitignore``), keyed by a hash of the sources
 and flags, so a checkout builds it once and reuses it until a source
 changes. Each source compiles in its own ``nvcc`` process, all started
-together; the objects are then linked. No fast-math flag: the kernels rely
-on IEEE division and rounding.
+together; the objects are then linked. Processes that build at the same time
+take turns on a file lock in the build directory: the first compiles, the
+others wait and load its library. No fast-math flag: the kernels rely on
+IEEE division and rounding.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -67,6 +70,15 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not lib.exists():
+            _compile(out_dir, lib)
+    return lib
+
+
+def _compile(out_dir: Path, lib: Path) -> None:
+    """Compile every source into ``out_dir`` and link ``lib``."""
     nvcc = _nvcc()
     procs = []
     for name in _SOURCES:
@@ -84,14 +96,13 @@ def build() -> Path:
     if failed:
         raise RuntimeError(
             f"repro_torch: nvcc failed for {failed}:\n" + "\n".join(log))
-    tmp = out_dir / f"{_LIB}.{os.getpid()}.tmp"
+    tmp = out_dir / f"{_LIB}.tmp"  # lib appears whole, for the unlocked check
     link = subprocess.run(
         [nvcc, "-shared", "-o", str(tmp), *(str(o) for _n, o, _p in procs)],
         capture_output=True, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"repro_torch: link failed:\n{link.stderr}")
     os.replace(tmp, lib)
-    return lib
 
 
 @functools.cache

@@ -5,6 +5,7 @@ reproduce XLA's reassociation, so every bit gate here feeds the port the
 reference's CDF; ``build_cdf`` itself is held to an ulp bound.
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -18,6 +19,15 @@ from repro_torch.core import build_cdf, build_forest_apetrei, forest_from_cdf
 from repro_torch.core import forest_to_numpy, validate_forest
 from repro_torch.core.cdf import _cummax, finalize_cdf
 from repro_torch.core.forest import _allowed_depth
+
+# Start JAX's backend while this file is collected: in every pytest process
+# that is before any test runs. tests/test_imports.py imports
+# repro.launch.dryrun in its own process, and that import sets XLA_FLAGS to
+# 512 fake devices; once the backend is up, the flag no longer changes the
+# device count that later test files in the same process see. Without this
+# line, which JAX tests meet 512 devices depends on how pytest-xdist groups
+# the test files on its workers, and the set of files decides that.
+jax.devices()
 
 # build_cdf vs repro.core.build_cdf, in float32 ulps. Both sum over the same
 # 64-row grid and divide by the same rounded total; they differ only in the
