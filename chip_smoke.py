@@ -6,18 +6,31 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 the ignored ``build/`` directory), then:
 
 1. prints the card's name and power limit and the kernel build time;
-2. holds every kernel of the main path against its plain PyTorch version on
-   the card, at the main path's shapes, and times kernel, plain version and
-   the nearest single PyTorch call with CUDA events;
-3. drives the main path at full width: the ``env_map_2d(1024, 1024)``
-   weights (n = 2^20 intervals, m = 2^20 guide cells) through
-   ``build_forest`` and 2^24 draws through ``sample_forest``, checks the
-   card's forest against the plain CPU build from the same CDF bits, every
-   draw's bracket, and a chi-square test;
-4. serves 8 ``ForestSampler.sample`` calls with duplicate slots and checks
-   them against ``sample_binary`` at the same QMC points;
-5. prints the kernels line (launch counts from steps 3-4), then the result
-   line as the last line of standard output.
+2. holds every kernel of the single-distribution path against its plain
+   PyTorch version on the card, at that path's shapes, and times kernel,
+   plain version and the nearest single PyTorch call with CUDA events;
+3. drives that path at full width: the ``env_map_2d(1024, 1024)`` weights
+   (n = 2^20 intervals, m = 2^20 guide cells) through ``build_forest`` and
+   2^24 draws through ``sample_forest``, checks the card's forest against
+   the plain CPU build from the same CDF bits, every draw's bracket, and a
+   chi-square test; serves 8 ``ForestSampler.sample`` calls with duplicate
+   slots and checks them against ``sample_binary`` at the same QMC points;
+4. drives the pool path: a ``PooledForestSampler`` over a ``ForestPool`` of
+   4096 tenants (sizes 17 to 65536 in 12 power-of-two classes, ~45M padded
+   cells, even tenants forest, odd alias, 16 tied and 64 dyadic ones):
+   one admission wave, 8 QMC stream drains of 2^20 draws over 2^16 slots,
+   one drain of 2^20 host uniforms, 512 weight updates, 256 evictions and
+   256 re-inserts, one more stream drain. Every drain is checked against
+   the plain versions at the same points and the stream counters against a
+   host ``QmcStreams`` twin; after the run, forest rows against the plain
+   CPU build from the same CDF bits, the alias build (bit-exact on dyadic
+   tenants, valid and mass-conserving on all), a per-tenant chi-square;
+5. holds each pool kernel against its plain version at 2^22 lanes on the
+   largest class's stacks and times it; prints admission times by class,
+   the device idle share and the host profile of one drain;
+6. prints the kernels line (launch counts from the runs of steps 3 and 4,
+   each with every count set to 0 just before it), then the result line as
+   the last line of standard output.
 
 Any failed check raises and exits non-zero. Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no result.
@@ -25,6 +38,7 @@ without the repository around it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -71,53 +85,11 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def descent_bytes(f, xi: torch.Tensor) -> int:
-    """Bytes ``forest_sample`` must move on this data: each uniform read and
-    each index written once, plus each table entry that some lane reads
-    (the guide entry of every touched cell; ``fallback`` only in cells
-    holding a tree; ``cell_first`` and the bisected ``cdf`` entries only in
-    flagged cells; ``cdf`` and one child per level along each descent)."""
-    from repro_torch.core.sample import _guide_cell
-
-    seen = {k: torch.zeros(t.numel(), dtype=torch.bool, device=xi.device)
-            for k, t in f._asdict().items()}
-    g = _guide_cell(xi, f.table.numel())
-    seen["table"][g] = True
-    j = f.table[g].long()
-    tree = j >= 0
-    seen["fallback"][g[tree]] = True
-    flag = tree & f.fallback[g]
-    gf, x = g[flag], xi[flag]
-    seen["cell_first"][gf] = True
-    seen["cell_first"][gf + 1] = True
-    lo, hi = f.cell_first[gf].long(), f.cell_first[gf + 1].long()
-    for _ in range(32):
-        mid = (lo + hi + 1) >> 1
-        seen["cdf"][mid] = True
-        up = x >= f.cdf[mid]
-        lo, hi = torch.where(up, mid, lo), torch.where(up, hi, mid - 1)
-    j[flag] = ~lo
-    x = xi
-    while True:
-        live = j >= 0
-        if not bool(live.any()):
-            break
-        j, x = j[live], x[live]
-        seen["cdf"][j] = True
-        go_left = x < f.cdf[j]
-        seen["left"][j[go_left]] = True
-        seen["right"][j[~go_left]] = True
-        j = torch.where(go_left, f.left[j], f.right[j]).long()
-    table_bytes = sum(int(seen[k].sum()) * f[i].element_size()
-                      for i, k in enumerate(f._fields))
-    return table_bytes + xi.numel() * 8
-
-
 def kernel_phase(device, weights: np.ndarray, m: int, n_draws: int, gen):
     """Each kernel against its plain version at the main path's shapes."""
     from repro_torch.core import cdf as C
-    from repro_torch.core.forest import build_forest, forest_from_cdf
-    from repro_torch.kernels import _build, ref
+    from repro_torch.core.forest import RadixForest, build_forest, forest_from_cdf
+    from repro_torch.kernels import ref
     from repro_torch.kernels.cdf_scan import SCAN_ATOL, cdf_scan
     from repro_torch.kernels.forest_delta import forest_delta
     from repro_torch.kernels.forest_sample import forest_sample
@@ -160,18 +132,14 @@ def kernel_phase(device, weights: np.ndarray, m: int, n_draws: int, gen):
     data = C.lower_bounds(cdf).contiguous()
     got, want = forest_delta(data, m), ref.ref_forest_delta(data, m)
     check(torch.equal(got, want), "forest_delta bit-exact")
-    # The kernel alone, without the wrapper's int64 widening.
-    out32 = torch.empty(data.numel() - 1, dtype=torch.int32, device=device)
-    lib, stream = _build.library(), _build.stream_of(data)
-    alone = cuda_ms(lambda: lib.rt_forest_delta(
-        data.data_ptr(), out32.data_ptr(), data.numel(), m, stream), 20)
-    print(f"forest_delta kernel alone (uint32 out): {alone:.4f} ms", flush=True)
+    # The bound counts the uint32 distances the function needs (4 B each);
+    # the kernel writes their int64 form (8 B), which the build compares.
     rows_raw["forest_delta"] = dict(
         max_abs_err=float((got - want).abs().max()),
         ms=cuda_ms(lambda: forest_delta(data, m), 20),
         plain_ms=cuda_ms(lambda: ref.ref_forest_delta(data, m), 20),
         library_ms=None,
-        bound=bound_ms(nbytes(data) + got.numel() * 8))
+        bound=bound_ms(nbytes(data) + got.numel() * 4))
     print(f"forest_delta n={data.numel()}: bit-exact", flush=True)
 
     # forest_sample: elementwise on the full-width forest and three
@@ -206,7 +174,8 @@ def kernel_phase(device, weights: np.ndarray, m: int, n_draws: int, gen):
         ms=cuda_ms(lambda: forest_sample(*args, xi), 20),
         plain_ms=cuda_ms(lambda: ref.ref_forest_sample(*args, xi), 5),
         library_ms=cuda_ms(lambda: torch.searchsorted(cdf1, xi, right=True), 20),
-        bound=bound_ms(descent_bytes(f, xi)))
+        bound=bound_ms(descent_bytes(RadixForest(*(t[None] for t in f)),
+                                     torch.zeros_like(xi, dtype=torch.int32), xi, 8)))
     return rows_raw
 
 
@@ -228,19 +197,11 @@ def stage_times(device, weights: np.ndarray, m: int) -> dict:
     }
 
 
-def device_profile(device, weights: np.ndarray, m: int, n_draws: int, gen) -> None:
-    """Device busy share and the heaviest kernels of one build_forest and
-    one sample_forest call, from torch.profiler."""
+def profile_calls(calls) -> None:
+    """Device busy share and the heaviest kernels of each ``(name, fn)``
+    call, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.forest import build_forest
-    from repro_torch.core.sample import sample_forest
-
-    w = torch.as_tensor(weights, dtype=torch.float32, device=device)
-    forest = build_forest(w, m, device=device)
-    xi = torch.rand(n_draws, generator=gen, device=device)
-    calls = (("build_forest", lambda: build_forest(w, m, device=device)),
-             ("sample_forest", lambda: sample_forest(forest, xi, device=device)))
     for name, fn in calls:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -250,6 +211,7 @@ def device_profile(device, weights: np.ndarray, m: int, n_draws: int, gen) -> No
             wall_ms = (time.perf_counter() - t) * 1e3
         kernels = [e for e in prof.key_averages()
                    if str(getattr(e, "device_type", "")).endswith("CUDA")]
+
         def dev_us(e):
             return getattr(e, "self_device_time_total", None) or getattr(
                 e, "self_cuda_time_total", 0.0)
@@ -263,6 +225,19 @@ def device_profile(device, weights: np.ndarray, m: int, n_draws: int, gen) -> No
               f"{sum(e.count for e in kernels)} kernel launches; top: "
               + "; ".join(f"{e.key[:48]} x{e.count} {dev_us(e) / 1e3:.3f} ms"
                           for e in top), flush=True)
+
+
+def device_profile(device, weights: np.ndarray, m: int, n_draws: int, gen) -> None:
+    """Device busy share and the heaviest kernels of one build_forest and
+    one sample_forest call."""
+    from repro_torch.core.forest import build_forest
+    from repro_torch.core.sample import sample_forest
+
+    w = torch.as_tensor(weights, dtype=torch.float32, device=device)
+    forest = build_forest(w, m, device=device)
+    xi = torch.rand(n_draws, generator=gen, device=device)
+    profile_calls((("build_forest", lambda: build_forest(w, m, device=device)),
+                   ("sample_forest", lambda: sample_forest(forest, xi, device=device))))
 
 
 def main_path(device, weights: np.ndarray, m: int, n_draws: int, gen) -> None:
@@ -340,12 +315,579 @@ def main_path(device, weights: np.ndarray, m: int, n_draws: int, gen) -> None:
           f"sample_binary at the same QMC points; counters exact", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The pool phase: a multi-tenant ForestPool behind a PooledForestSampler.
+# ---------------------------------------------------------------------------
+
+POOL_TENANTS = 4096         # tenants, sizes 2^(k-1)+1 .. 2^k, k uniform in 5..16
+POOL_KMIN, POOL_KMAX = 5, 16
+POOL_TIED = 16              # tied-weight forest tenants (fallback cells)
+POOL_DYADIC = 64            # dyadic alias tenants (bit-exact alias build)
+POOL_SLOTS = 1 << 16        # QMC stream slots
+POOL_DRAWS = 1 << 20        # draws per drain
+POOL_STREAM_DRAINS = 8      # stream drains before the churn
+POOL_UPDATES = 512
+POOL_EVICTIONS = 256
+POOL_KERNEL_LANES = 1 << 22  # lanes (leaves) of each new kernel timed alone
+
+POOL_KERNELS = {
+    "forest_delta_update": ("forest_delta.cu", "src/repro/kernels/forest_delta.py:67"),
+    "forest_sample_batched": ("forest_sample_batched.cu",
+                              "src/repro/kernels/forest_sample.py:177"),
+    "forest_sample_batched_streams": ("forest_sample_batched.cu",
+                                      "src/repro/kernels/forest_sample.py:250"),
+    "alias_build_batched": ("alias_build.cu", "src/repro/kernels/alias_build.py:150"),
+    "alias_sample_batched": ("alias_sample.cu", "src/repro/kernels/alias_sample.py:51"),
+}
+
+
+def dyadic_weights(n: int, rng) -> np.ndarray:
+    """Integer weights in [1, 8) with a power-of-two total: every partial
+    sum of the alias tapes is exact in float32, in any order."""
+    c = rng.integers(1, 8, n)
+    extra = (1 << int(np.ceil(np.log2(c.sum())))) - c.sum()
+    np.add.at(c, rng.integers(0, n, extra), 1)
+    return c.astype(np.float64)
+
+
+def pool_tenants(T: int, kmin: int, kmax: int):
+    """The pool's tenants from ``default_rng(0)``: sizes, weights (the
+    ``rng.random(n)**6 + 1e-9`` family of benchmarks/pool.py, 16 tied and
+    64 dyadic ones), methods (even forest, odd alias)."""
+    rng = np.random.default_rng(0)
+    k = rng.integers(kmin, kmax + 1, T)
+    half = (1 << (k - 1)).astype(np.int64)
+    n = half + 1 + rng.integers(0, half)
+    weights = [rng.random(int(s)) ** 6 + 1e-9 for s in n]
+    tied = list(range(0, T, 2 * max(T // (2 * POOL_TIED), 1)))[:POOL_TIED]  # even
+    for j, t in enumerate(tied):
+        w = np.zeros(int(n[t]))
+        if j % 2 == 0:
+            w[len(w) // 2] = 1.2        # spike, zero-width runs both sides
+        else:
+            w[0], w[-1] = 1.2, 0.8      # one long interior tie
+        weights[t] = w
+    dyadic = list(range(1, T, 2 * max(T // (2 * POOL_DYADIC), 1)))[:POOL_DYADIC]  # odd
+    for t in dyadic:
+        weights[t] = dyadic_weights(int(n[t]), rng)
+    methods = ["forest" if t % 2 == 0 else "alias" for t in range(T)]
+    return weights, methods, tied, dyadic
+
+
+def plain_drain(pool, handles, xi: torch.Tensor) -> np.ndarray:
+    """The drain recomputed by the plain versions on the pool's stacks:
+    one group per (method, size class), results clipped to ``n - 1``."""
+    from repro_torch.kernels import ref
+
+    dev = xi.device
+    rows = np.fromiter((h.row for h in handles), np.int64, len(handles))
+    hi = np.fromiter((h.n - 1 for h in handles), np.int64, len(handles))
+    key = np.fromiter(((h.size_class << 1) | (h.method == "alias") for h in handles),
+                      np.int64, len(handles))
+    out = np.empty(len(handles), np.int32)
+    for k in np.unique(key):
+        qs = np.flatnonzero(key == k)
+        size, alias = int(k >> 1), bool(k & 1)
+        did = torch.as_tensor(rows[qs], device=dev)
+        x = xi[torch.as_tensor(qs, device=dev)]
+        if alias:
+            t = pool.alias_classes[size].table
+            idx = ref.ref_alias_sample_batched(t.q, t.alias, did, x)
+        else:
+            idx = ref.ref_forest_sample_batched(*pool.classes[size].forest, did, x)
+        out[qs] = np.minimum(idx.cpu().numpy(), hi[qs])
+    return out
+
+
+def descent_bytes(f, did: torch.Tensor, xi: torch.Tensor, lane_bytes: int) -> int:
+    """Bytes a descent over B stacked forests must move on this data:
+    ``lane_bytes`` a lane (its inputs read and outputs written once) plus
+    each table entry some valid lane reads, at flat row offsets: the guide
+    entry of every touched cell; ``fallback`` only in cells holding a tree;
+    ``cell_first`` and the bisected ``cdf`` entries only in flagged cells;
+    ``cdf`` and one child per level along each descent. One forest is the
+    stack of one row."""
+    B, m = f.table.shape
+    n = f.left.shape[1]
+    seen = {k: torch.zeros(t.numel(), dtype=torch.bool, device=xi.device)
+            for k, t in f._asdict().items()}
+    flat = {k: t.reshape(-1) for k, t in f._asdict().items()}
+    ok = did >= 0
+    d, x = did[ok].long(), xi[ok]
+    g = torch.clamp(torch.floor(x * float(m)).to(torch.int32), 0, m - 1).long()
+    seen["table"][d * m + g] = True
+    j = flat["table"][d * m + g].long()
+    tree = j >= 0
+    seen["fallback"][(d * m + g)[tree]] = True
+    flag = tree & flat["fallback"][d * m + g]
+    df, gf, xf = d[flag], g[flag], x[flag]
+    seen["cell_first"][df * (m + 1) + gf] = True
+    seen["cell_first"][df * (m + 1) + gf + 1] = True
+    lo = flat["cell_first"][df * (m + 1) + gf].long()
+    hi = flat["cell_first"][df * (m + 1) + gf + 1].long()
+    for _ in range(32):
+        mid = (lo + hi + 1) >> 1
+        seen["cdf"][df * (n + 1) + mid] = True
+        up = xf >= flat["cdf"][df * (n + 1) + mid]
+        lo, hi = torch.where(up, mid, lo), torch.where(up, hi, mid - 1)
+    j[flag] = ~lo
+    while True:
+        live = j >= 0
+        if not bool(live.any()):
+            break
+        j, x, d = j[live], x[live], d[live]
+        seen["cdf"][d * (n + 1) + j] = True
+        go_left = x < flat["cdf"][d * (n + 1) + j]
+        seen["left"][(d * n + j)[go_left]] = True
+        seen["right"][(d * n + j)[~go_left]] = True
+        j = torch.where(go_left, flat["left"][d * n + j], flat["right"][d * n + j]).long()
+    table_bytes = sum(int(seen[k].sum()) * f[i].element_size()
+                      for i, k in enumerate(f._fields))
+    return table_bytes + did.numel() * lane_bytes
+
+
+def chi_square_tenant(p: np.ndarray, draws: np.ndarray, bins: int = 16):
+    """Pearson chi-square of one tenant's draws over equal-mass bins."""
+    from repro_torch.core.metrics import chi2_statistic, histogram
+
+    p = p / p.sum()
+    cdf64 = np.concatenate([[0.0], np.cumsum(p)])
+    b = np.minimum((cdf64[:-1] + cdf64[1:]) * 0.5 * bins, bins - 1).astype(np.int64)
+    counts = np.bincount(b, weights=histogram(draws, len(p)), minlength=bins)
+    mass = np.bincount(b, weights=p, minlength=bins)
+    used = mass > 0
+    chi2 = chi2_statistic(counts[used], mass[used] / mass[used].sum())
+    dof = int(used.sum()) - 1
+    return chi2, dof, dof + 6.0 * np.sqrt(2.0 * max(dof, 1))
+
+
+def pool_path(device, T=POOL_TENANTS, kmin=POOL_KMIN, kmax=POOL_KMAX,
+              n_slots=POOL_SLOTS, n_draws=POOL_DRAWS, n_updates=POOL_UPDATES,
+              n_evict=POOL_EVICTIONS) -> dict:
+    """The pool's main path through the user entry points: one admission
+    wave, QMC stream drains, one host-uniform drain, churn, one more stream
+    drain. Returns what the checks after it need."""
+    from repro_torch.core.cdf import normalize_weights
+    from repro_torch.robust.errors import StaleHandleError
+    from repro_torch.serve.sampler import PooledForestSampler, QmcStreams
+
+    weights, methods, tied, dyadic = pool_tenants(T, kmin, kmax)
+    rng = np.random.default_rng(1)
+    sampler = PooledForestSampler(n_slots=n_slots, seed=0, device=device)
+    pool = sampler.pool
+    twin = QmcStreams(n_slots, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    handles = sampler.add_many(weights, method=methods)
+    torch.cuda.synchronize()
+    admit_ms = (time.perf_counter() - t) * 1e3
+    st = pool.stats()
+    cells = sum(c["occupied"] * s for s, c in st["classes"].items()) + sum(
+        c["occupied"] * s for s, c in st["alias_classes"].items())
+    print(f"pool admission: {T} tenants, {cells} padded cells, one insert_many "
+          f"wave {admit_ms:.3f} ms (host clock, first call), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+
+    def stream_drain(label):
+        lanes = rng.integers(0, len(handles), n_draws)
+        slots = rng.integers(0, n_slots, n_draws)
+        slots[:64] = slots[64:128]  # duplicate slots in every drain
+        hs = [handles[i] for i in lanes]
+        before = sampler.streams.snapshot()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = sampler.sample(hs, slots)
+        dt = time.perf_counter() - t
+        pts = twin.next(slots)
+        check(np.array_equal(sampler.streams.counters.cpu().numpy().view(np.uint32),
+                             twin.counters), f"stream counters, {label}")
+        want = plain_drain(pool, hs, torch.as_tensor(pts, device=device))
+        check(np.array_equal(out, want), f"stream drain == plain versions, {label}")
+        return dict(lanes=lanes, slots=slots, out=out, xi=pts, before=before, s=dt)
+
+    drains = [stream_drain(f"drain {i}") for i in range(POOL_STREAM_DRAINS)]
+    rate = [n_draws / d["s"] for d in drains]
+    print(f"pool stream drains: {len(drains)} x {n_draws} draws, "
+          f"{statistics.median(rate):.6e} draws/s median (host clock, "
+          f"{min(rate):.6e} .. {max(rate):.6e}); counters exact; every draw == "
+          f"plain versions at the twin's QMC points", flush=True)
+
+    lanes = rng.integers(0, len(handles), n_draws)
+    host_xi = rng.random(n_draws).astype(np.float32)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    hs = [handles[i] for i in lanes]
+    host_out = pool.sample(hs, host_xi)
+    dt = time.perf_counter() - t
+    want = plain_drain(pool, hs, torch.as_tensor(host_xi, device=device))
+    check(np.array_equal(host_out, want), "host-uniform drain == plain versions")
+    print(f"pool host-uniform drain: {n_draws} draws, {n_draws / dt:.6e} draws/s "
+          f"(host clock); == plain versions", flush=True)
+
+    orig = list(weights)
+    # Churn: a quarter bit-identical updates (skips), a quarter deltas, half
+    # full rewrites; then evictions and single-tenant re-inserts.
+    churnable = np.setdiff1d(np.arange(len(handles)), tied + dyadic)
+    upd = rng.choice(churnable, n_updates, replace=False)
+    kinds = ["same"] * (n_updates // 4) + ["delta"] * (n_updates // 4) + [
+        "full"] * (n_updates - n_updates // 2)
+    skips0 = sum(c["delta_skips"] for c in pool.stats()["classes"].values()) + sum(
+        c["skips"] for c in pool.stats()["alias_classes"].values())
+    times = {"skip": [], "forest": [], "alias": []}
+    for i, kind in zip(upd, kinds):
+        h = handles[i]
+        n = h.n
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if kind == "same":
+            sampler.update(h, weights[i])
+        elif kind == "delta":
+            d = np.zeros(n)
+            d[rng.integers(0, n, 4)] = rng.random(4)
+            sampler.update(h, delta=d)
+            weights[i] = weights[i] + d
+        else:
+            weights[i] = rng.random(n) ** 6 + 1e-9
+            sampler.update(h, weights[i])
+        torch.cuda.synchronize()
+        times["skip" if kind == "same" else h.method].append((time.perf_counter() - t) * 1e3)
+    skips = sum(c["delta_skips"] for c in pool.stats()["classes"].values()) + sum(
+        c["skips"] for c in pool.stats()["alias_classes"].values()) - skips0
+    check(skips == n_updates // 4, f"bit-identical updates skip ({skips})")
+    print("pool updates (host clock, ms per call, median [max]): " + ", ".join(
+        f"{k} {statistics.median(v):.3f} [{max(v):.3f}] x{len(v)}"
+        for k, v in times.items() if v),
+        flush=True)
+
+    gone = rng.choice(np.setdiff1d(churnable, upd), n_evict, replace=False)
+    evicted = []
+    for i in gone:
+        sampler.remove(handles[i])
+        evicted.append(handles[i])
+    for h in evicted[:16]:
+        try:
+            pool.sample([h], [0.5])
+        except StaleHandleError:
+            continue
+        raise RuntimeError(f"chip_smoke: evicted handle {h} did not raise")
+    add_ms = {"forest": [], "alias": []}
+    for i in gone:
+        weights[i] = rng.random(len(weights[i])) ** 6 + 1e-9
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        handles[i] = sampler.add(weights[i], method=methods[i])
+        torch.cuda.synchronize()
+        add_ms[methods[i]].append((time.perf_counter() - t) * 1e3)
+    print(f"pool churn: {len(gone)} evictions (stale handles raise), "
+          f"{len(gone)} single-tenant inserts (host clock, ms median [max]): " + ", ".join(
+              f"{k} {statistics.median(v):.3f} [{max(v):.3f}] x{len(v)}"
+              for k, v in add_ms.items() if v), flush=True)
+    drains.append(stream_drain("after churn"))
+    print(f"pool drain after churn: {n_draws / drains[-1]['s']:.6e} draws/s "
+          f"(host clock); peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
+          flush=True)
+    return dict(sampler=sampler, pool=pool, handles=handles, weights=weights,
+                orig=orig, methods=methods, tied=tied, dyadic=dyadic,
+                drains=drains, updated=upd, norm=normalize_weights)
+
+
+def pool_checks(rec: dict, device) -> None:
+    """Checks of the pool run, after it: forest rows against the plain CPU
+    build from the same CDF bits, every drain against the plain versions at
+    the same points, the alias build on dyadic tenants and on all rows, and
+    a per-tenant chi-square."""
+    from repro_torch.core.alias import build_alias_parallel
+    from repro_torch.core.forest import forest_from_cdf, forest_to_numpy
+    from repro_torch.kernels import ref
+
+    pool, handles, weights = rec["pool"], rec["handles"], rec["weights"]
+    rng = np.random.default_rng(2)
+    forest_t = [i for i, h in enumerate(handles) if h.method == "forest"]
+    by_class = {}
+    for i in forest_t:
+        by_class.setdefault(handles[i].size_class, []).append(i)
+    pick = set(rec["tied"]) | set(int(i) for i in rec["updated"] if handles[i].method == "forest")
+    pick = sorted(pick)[:16]
+    for ts in by_class.values():  # the rest spread over every class
+        pick += [int(i) for i in rng.choice(ts, min(4, len(ts)), replace=False)]
+    pick = sorted(set(pick))[:max(64, len(by_class))]
+    for i in pick:
+        f = pool.forest_row(handles[i])
+        card = forest_to_numpy(f)
+        plain = forest_to_numpy(forest_from_cdf(f.cdf.cpu(), f.m, device="cpu"))
+        for k in card:
+            check(np.array_equal(card[k], plain[k]), f"forest row {handles[i]} {k}")
+    flagged = sum(int(pool.forest_row(handles[i]).fallback.sum()) for i in rec["tied"])
+    print(f"pool forest rows: {len(pick)} tenants over {len(by_class)} classes == "
+          f"plain CPU build from the same CDF bits, all six arrays "
+          f"({flagged} flagged cells in the tied tenants)", flush=True)
+
+    alias_t = [i for i, h in enumerate(handles) if h.method == "alias"]
+    for i in rec["dyadic"]:
+        h = handles[i]
+        t = pool.alias_row(h)
+        w = np.pad(rec["norm"](weights[i]), (0, h.size_class - h.n)).astype(np.float32)
+        host = build_alias_parallel(w.astype(np.float64), device="cpu")
+        plain = ref.ref_alias_build_batched(torch.as_tensor(w[None], device=device))
+        check(torch.equal(t.q.cpu(), host.q) and torch.equal(t.alias.cpu(), host.alias),
+              f"alias build dyadic tenant {h} == build_alias_parallel")
+        check(torch.equal(t.q, plain[0][0]) and torch.equal(t.alias, plain[1][0]),
+              f"alias build dyadic tenant {h} == plain version")
+    worst = 0.0
+    for size, ar in pool.alias_classes.items():
+        rows = [i for i in alias_t if handles[i].size_class == size]
+        if not rows:
+            continue
+        r = torch.as_tensor([handles[i].row for i in rows], device=device)
+        q, a = ar.table.q[r].double(), ar.table.alias[r].long()
+        check(bool(((q >= 0) & (q <= 1)).all()) and bool(((a >= 0) & (a < size)).all()),
+              f"alias class {size}: valid tables")
+        W = np.stack([np.pad(rec["norm"](weights[i]), (0, size - handles[i].n))
+                      for i in rows]).astype(np.float32)
+        Wt = torch.as_tensor(W, device=device).double()
+        npi = Wt / Wt.sum(1, keepdim=True) * size
+        mass = q.clone().scatter_add_(1, a, 1.0 - q)
+        err = (mass - npi).abs()
+        worst = max(worst, float(err.max()))
+        # the tests' tolerance: 2e-4 relative and absolute, plus the row's
+        # normalization residue (float32 n*p sum to n within a few ulps of n)
+        check(bool((err <= 2e-4 + 2e-4 * npi + size * 2.0**-22).all()),
+              f"alias class {size}: mass conserved ({float(err.max())})")
+    print(f"pool alias build: {len(rec['dyadic'])} dyadic tenants bit-exact "
+          f"(plain version and build_alias_parallel); {len(alias_t)} tables valid, "
+          f"worst |mass - n*p| {worst:.3e}", flush=True)
+
+    lanes = np.concatenate([d["lanes"] for d in rec["drains"][:POOL_STREAM_DRAINS]])
+    outs = np.concatenate([d["out"] for d in rec["drains"][:POOL_STREAM_DRAINS]])
+    per = np.bincount(lanes, minlength=len(handles))
+    top = [i for i in np.argsort(-per) if rec["methods"][i] == "forest"][:8]
+    for i in top:
+        chi2, dof, limit = chi_square_tenant(rec["orig"][i], outs[lanes == i])
+        check(chi2 < limit, f"chi-square tenant {i}: {chi2} (limit {limit})")
+    print(f"pool chi-square: {len(top)} forest tenants with the most draws "
+          f"({int(per[top].min())}..{int(per[top].max())} each) pass", flush=True)
+
+
+def pool_kernels(rec: dict, device, gen, n_lanes: int) -> dict:
+    """Each new kernel alone on the pool's largest stacks at ``n_lanes``
+    lanes (leaves for the update mask): against its plain version on the
+    same inputs, then timed with CUDA events beside the plain version."""
+    from repro_torch.core.alias import np_sample_alias_f32
+    from repro_torch.core.cdf import lower_bounds
+    from repro_torch.core.lds import qmc_point_np
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.alias_build import alias_build_batched
+    from repro_torch.kernels.alias_sample import alias_sample_batched
+    from repro_torch.kernels.forest_delta import forest_delta_update
+    from repro_torch.kernels.forest_sample import (
+        forest_sample_batched,
+        forest_sample_batched_streams,
+    )
+    from repro_torch.serve.sampler import DeviceQmcStreams
+
+    pool, handles = rec["pool"], rec["handles"]
+    rows = {}
+    fsize = max(pool.classes)
+    f = pool.classes[fsize].forest
+    live = torch.as_tensor(sorted(pool.classes[fsize].raw), device=device)
+    pick = torch.randint(0, len(live), (n_lanes,), generator=gen, device=device)
+    did = live[pick].to(torch.int32)
+    xi = torch.rand(n_lanes, generator=gen, device=device)
+
+    want = ref.ref_forest_sample_batched(*f, did, xi)
+    for co in (True, False):
+        check(torch.equal(forest_sample_batched(*f, did, xi, coalesce=co), want),
+              f"forest_sample_batched == plain, coalesce={co}")
+    co_ms = cuda_ms(lambda: forest_sample_batched(*f, did, xi, coalesce=True), 10)
+    rows["forest_sample_batched"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: forest_sample_batched(*f, did, xi, coalesce=False), 20),
+        plain_ms=cuda_ms(lambda: ref.ref_forest_sample_batched(*f, did, xi), 3),
+        library_ms=None, bound=bound_ms(descent_bytes(f, did, xi, 12)))
+
+    # uint32 counters and offsets as int32 bit views, the streams' own form
+    ctr = torch.randint(-2**31, 2**31, (n_lanes,), generator=gen, device=device,
+                        dtype=torch.int32)
+    off = torch.randint(0, 2**24, (n_lanes,), generator=gen, device=device,
+                        dtype=torch.int32)
+    wi, wx = ref.ref_forest_sample_batched_streams(*f, did, ctr, off)
+    pts = qmc_point_np(ctr.cpu().numpy().view(np.uint32),
+                       off.cpu().numpy().view(np.uint32))
+    for co in (True, False):
+        gi, gx = forest_sample_batched_streams(*f, did, ctr, off, coalesce=co)
+        check(torch.equal(gi, wi), f"forest_sample_batched_streams == plain, coalesce={co}")
+        check(np.array_equal(gx.cpu().numpy().view(np.uint32), pts.view(np.uint32)),
+              f"stream points == qmc_point_np, coalesce={co}")
+    # The last drain's lanes of this class, at its own pre-pass state: the
+    # kernel's points equal the host twin's, its indices the drain's.
+    d = rec["drains"][-1]
+    c, o, _x = DeviceQmcStreams.restore(d["before"], device=device).draw(d["slots"])
+    sel = np.flatnonzero([handles[i].method == "forest" and handles[i].size_class == fsize
+                          for i in d["lanes"]])
+    st = torch.as_tensor(sel, device=device)
+    r = torch.as_tensor([handles[i].row for i in d["lanes"][sel]], device=device,
+                        dtype=torch.int32)
+    gi, gx = forest_sample_batched_streams(*f, r, c[st], o[st])
+    check(np.array_equal(gx.cpu().numpy().view(np.uint32), d["xi"][sel].view(np.uint32)),
+          "stream kernel points == host QmcStreams twin")
+    hi = np.asarray([handles[i].n - 1 for i in d["lanes"][sel]])
+    check(np.array_equal(np.minimum(gi.cpu().numpy(), hi), d["out"][sel]),
+          "stream kernel == the drain's draws")
+    print(f"forest_sample_batched on class {fsize} ({len(live)} rows, {n_lanes} lanes): "
+          f"coalesced {co_ms:.4f} ms; stream points bit-equal to the twin on "
+          f"{len(sel)} drain lanes", flush=True)
+    sco_ms = cuda_ms(lambda: forest_sample_batched_streams(*f, did, ctr, off, coalesce=True), 10)
+    rows["forest_sample_batched_streams"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: forest_sample_batched_streams(*f, did, ctr, off, coalesce=False), 20),
+        plain_ms=cuda_ms(lambda: ref.ref_forest_sample_batched_streams(*f, did, ctr, off), 3),
+        library_ms=None, bound=bound_ms(descent_bytes(f, did, wx, 20)))
+    print(f"forest_sample_batched_streams: coalesced (the drain's default) "
+          f"{sco_ms:.4f} ms, without coalescing "
+          f"{rows['forest_sample_batched_streams']['ms']:.4f} ms", flush=True)
+
+    asize = max(pool.alias_classes)
+    ar = pool.alias_classes[asize]
+    ts = [i for i, h in enumerate(handles) if h.method == "alias" and h.size_class == asize]
+    W = torch.as_tensor(np.stack([np.pad(rec["norm"](rec["weights"][i]),
+                                         (0, asize - handles[i].n)) for i in ts]),
+                        device=device)
+    q, a = alias_build_batched(W)
+    pq, pa = ref.ref_alias_build_batched(W)
+    check(bool(((q >= 0) & (q <= 1)).all()) and bool(((a >= 0) & (a < asize)).all()),
+          "alias_build_batched valid")
+    rows["alias_build_batched"] = dict(
+        max_abs_err=float((q - pq).abs().max()),
+        ms=cuda_ms(lambda: alias_build_batched(W), 10),
+        plain_ms=cuda_ms(lambda: ref.ref_alias_build_batched(W), 3),
+        library_ms=None, bound=bound_ms(W.numel() * 12))
+    print(f"alias_build_batched on class {asize} ({len(ts)} rows): max |q - plain q| "
+          f"{rows['alias_build_batched']['max_abs_err']:.3e}, alias entries differing "
+          f"{int((a != pa).sum())} of {a.numel()} (summation order; both valid)", flush=True)
+
+    alive = torch.as_tensor(sorted(ar.raw), device=device)
+    did_a = alive[torch.randint(0, len(alive), (n_lanes,), generator=gen,
+                                device=device)].to(torch.int32)
+    did_a[:64] = -1
+    xa = torch.rand(n_lanes, generator=gen, device=device)
+    xa[64:67] = torch.tensor([0.0, 1.0, float(np.nextafter(np.float32(1), np.float32(0)))],
+                             device=device)
+    qh, ah = ar.table.q.cpu().numpy(), ar.table.alias.cpu().numpy()
+    dh, xh = did_a.cpu().numpy(), xa.cpu().numpy()
+    want = np.zeros(n_lanes, np.int32)
+    order = np.argsort(dh, kind="stable")
+    bounds = np.searchsorted(dh[order], np.unique(dh))
+    for rr, lo, hi_ in zip(np.unique(dh), bounds, list(bounds[1:]) + [len(dh)]):
+        if rr >= 0:
+            sl = order[lo:hi_]
+            want[sl] = np_sample_alias_f32(qh[rr], ah[rr], xh[sl])
+    for co in (True, False):
+        got = alias_sample_batched(ar.table.q, ar.table.alias, did_a, xa, coalesce=co)
+        check(np.array_equal(got.cpu().numpy(), want),
+              f"alias_sample_batched == np_sample_alias_f32, coalesce={co}")
+    cells = torch.clamp((xa * float(asize)).to(torch.int32), 0, asize - 1).long()
+    touched = int(torch.unique(did_a[did_a >= 0].long() * asize + cells[did_a >= 0]).numel())
+    rows["alias_sample_batched"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: alias_sample_batched(ar.table.q, ar.table.alias, did_a, xa,
+                                                coalesce=False), 20),
+        plain_ms=cuda_ms(lambda: ref.ref_alias_sample_batched(ar.table.q, ar.table.alias,
+                                                              did_a, xa), 5),
+        library_ms=None, bound=bound_ms(n_lanes * 12 + touched * 8))
+
+    R = max(1, min(len(live), n_lanes // fsize))
+    old = lower_bounds(f.cdf[live[:R]]).reshape(-1).contiguous()
+    new = old.clone()
+    new[::5] = torch.nextafter(new[::5], torch.ones_like(new[::5]))
+    d_k, ch_k = forest_delta_update(old, new, fsize)
+    d_p, ch_p = ref.ref_forest_delta_update(old, new, fsize)
+    check(torch.equal(d_k, d_p) and torch.equal(ch_k, ch_p), "forest_delta_update bit-exact")
+    oi, ni = old.view(torch.int32), new.view(torch.int32)
+    rows["forest_delta_update"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: forest_delta_update(old, new, fsize), 20),
+        plain_ms=cuda_ms(lambda: ref.ref_forest_delta_update(old, new, fsize), 20),
+        library_ms=cuda_ms(lambda: torch.ne(oi, ni), 20),
+        # 8 B in, 1 B of mask and 4 B of uint32 distance out a leaf; the
+        # kernel writes the distances' int64 form (8 B)
+        bound=bound_ms(old.numel() * (8 + 1 + 4)))
+    print(f"forest_delta_update on {old.numel()} leaves: bit-exact; "
+          f"alias_sample_batched on class {asize} ({len(alive)} rows): elementwise "
+          f"== np_sample_alias_f32; forest_sample_batched(_streams) elementwise == "
+          f"plain, coalesce on and off", flush=True)
+    return rows
+
+
+def pool_admission_by_class(rec: dict, device) -> None:
+    """Admission time of each (method, size class) group: its tenants (as
+    they stand after the run) through ``insert_many`` into a fresh pool,
+    host clock around a synchronized call, best of 2."""
+    from repro_torch.pool import ForestPool
+
+    handles, weights = rec["handles"], rec["weights"]
+    groups = {}
+    for i, h in enumerate(handles):
+        groups.setdefault((h.method, h.size_class), []).append(weights[i])
+    parts = []
+    for (meth, size), ws in sorted(groups.items(), key=lambda g: (g[0][0], g[0][1])):
+        best = math.inf
+        for _ in range(2):
+            pool = ForestPool(device=device)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pool.insert_many(ws, method=meth)
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t) * 1e3)
+        parts.append(f"{meth} {size} x{len(ws)} {best:.3f}")
+    print("pool admission by class (ms, host clock, best of 2): " + "; ".join(parts),
+          flush=True)
+
+
+def pool_profile(rec: dict, device, n_draws: int) -> None:
+    """Device busy share of one stream drain and of one forest update, and
+    the host-side split of one stream drain (cProfile)."""
+    import cProfile
+    import pstats
+
+    rng = np.random.default_rng(3)
+    sampler, handles = rec["sampler"], rec["handles"]
+    lanes = rng.integers(0, len(handles), n_draws)
+    hs = [handles[i] for i in lanes]
+    slots = rng.integers(0, sampler.streams.n_slots, n_draws)
+    i = next(i for i, h in enumerate(handles) if h.method == "forest")
+    w = rng.random(handles[i].n) ** 6 + 1e-9
+    profile_calls((("pool stream drain", lambda: sampler.sample(hs, slots)),
+                   ("pool forest update", lambda: sampler.update(handles[i], w))))
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    prof.runcall(sampler.sample, hs, slots)
+    wall = time.perf_counter() - t
+    stats = pstats.Stats(prof).stats
+    parts = []
+    for name in ("_drain_plan", "draw", "forest_sample_batched_streams",
+                 "alias_sample_batched", "_guard_group"):
+        cum = sum(v[3] for k, v in stats.items() if k[2] == name
+                  and k[0].endswith(("ops.py", "arena.py", "sampler.py")))
+        if cum:
+            parts.append(f"{name} {cum * 1e3:.1f} ms ({cum / wall:.3f})")
+    print(f"host profile of one {n_draws}-draw stream drain: wall {wall * 1e3:.1f} ms "
+          f"(under cProfile); cumulative: " + ", ".join(parts), flush=True)
+
+
 def run() -> dict:
     """The whole smoke run on the card; returns the kernels record."""
     from repro_torch.configs.paper_workloads import env_map_2d
+    from repro_torch.kernels.alias_build import alias_build_batched
+    from repro_torch.kernels.alias_sample import alias_sample_batched
     from repro_torch.kernels.cdf_scan import cdf_scan
-    from repro_torch.kernels.forest_delta import forest_delta
-    from repro_torch.kernels.forest_sample import forest_sample
+    from repro_torch.kernels.forest_delta import forest_delta, forest_delta_update
+    from repro_torch.kernels.forest_sample import (
+        forest_sample,
+        forest_sample_batched,
+        forest_sample_batched_streams,
+    )
 
     device = torch.device("cuda")
     weights = env_map_2d(SIDE, SIDE, seed=0).reshape(-1).astype(np.float32)
@@ -360,30 +902,49 @@ def run() -> dict:
     device_profile(device, weights, m, n_draws, gen)
 
     wrappers = {"cdf_scan": cdf_scan, "forest_delta": forest_delta,
-                "forest_sample": forest_sample}
-    for fn in wrappers.values():
-        fn.launches = 0
-    main_path(device, weights, m, n_draws, gen)
-    launches = {k: fn.launches for k, fn in wrappers.items()}
+                "forest_sample": forest_sample,
+                "forest_delta_update": forest_delta_update,
+                "forest_sample_batched": forest_sample_batched,
+                "forest_sample_batched_streams": forest_sample_batched_streams,
+                "alias_build_batched": alias_build_batched,
+                "alias_sample_batched": alias_sample_batched}
 
-    replaces = {
-        "cdf_scan": "src/repro/kernels/cdf_scan.py:78",
-        "forest_delta": "src/repro/kernels/forest_delta.py:37",
-        "forest_sample": "src/repro/kernels/forest_sample.py:320",
-    }
+    def counted(path, *args, **kwargs):
+        """Drive one path with every count at 0; its result and counts."""
+        for fn in wrappers.values():
+            fn.launches = 0
+        out = path(*args, **kwargs)
+        return out, {k: fn.launches for k, fn in wrappers.items()}
+
+    _, main_counts = counted(main_path, device, weights, m, n_draws, gen)
+    rec, pool_counts = counted(pool_path, device)
+    print(f"launches on the main path: {main_counts}", flush=True)
+    print(f"launches on the pool path: {pool_counts}", flush=True)
+    pool_checks(rec, device)
+    raw.update(pool_kernels(rec, device, gen, POOL_KERNEL_LANES))
+    pool_admission_by_class(rec, device)
+    pool_profile(rec, device, POOL_DRAWS)
+
+    sources = {k: (f"{k}.cu", r) for k, r in (
+        ("cdf_scan", "src/repro/kernels/cdf_scan.py:78"),
+        ("forest_delta", "src/repro/kernels/forest_delta.py:37"),
+        ("forest_sample", "src/repro/kernels/forest_sample.py:320"))}
+    sources.update(POOL_KERNELS)
     kernels = []
-    for name in ("cdf_scan", "forest_delta", "forest_sample"):
+    for name, (src, replaces) in sources.items():
         r = raw[name]
+        launches = (main_counts if name in ("cdf_scan", "forest_delta", "forest_sample")
+                    else pool_counts)[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": replaces[name], "launches": launches[name],
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"],
         })
     for k in kernels:
-        check(k["launches"] > 0, f"{k['name']} launched on the main path")
+        check(k["launches"] > 0, f"{k['name']} launched on its path")
     return {"kernels": kernels}
 
 

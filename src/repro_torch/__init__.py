@@ -3,11 +3,27 @@ discrete sampling, Binder & Keller 2019).
 
 Module paths mirror ``repro``. The package imports ``torch`` and numpy and
 never ``jax`` or ``repro``: what it needs of the JAX package's pure-numpy
-modules it keeps as its own copies.
+modules it keeps as its own copies (``robust.errors``, ``robust.validate``,
+``core.alias``'s host builds, ``core.lds``, ``core.metrics``).
+
+Layers on the card so far:
+
+* one distribution: ``core.cdf.build_cdf`` -> ``core.forest.build_forest``
+  -> ``core.sample.sample_forest`` and ``serve.sampler.ForestSampler``,
+  on the kernels ``cdf_scan``, ``forest_delta`` and ``forest_sample``;
+* the multi-tenant pool: ``pool.ForestPool`` (size-class arenas of
+  stacked forests and packed alias tables, admission, updates,
+  evictions, drains) and ``serve.sampler.PooledForestSampler`` with
+  ``DeviceQmcStreams``, on the kernels ``forest_delta_update``,
+  ``forest_sample_batched``, ``forest_sample_batched_streams``,
+  ``alias_build_batched`` and ``alias_sample_batched`` (and the batched
+  builds' ``cdf_scan`` and ``forest_delta``). ``interop`` restores a
+  JAX pool or sampler snapshot into the port.
 
 Device policy (see :mod:`repro_torch.device`):
 
-* every public entry point takes ``device=`` and defaults to ``"cuda"``;
+* every public entry point takes ``device=`` and defaults to ``"cuda"``
+  (``ForestPool(device=...)``, the samplers, the builds, ``restore``);
   without a card it raises unless the caller passes ``device="cpu"``;
 * kernel wrappers dispatch on the tensor they are given: a CPU tensor goes
   to the plain PyTorch version, a CUDA tensor launches the hand-written

@@ -54,10 +54,12 @@ def updated_weights(raw, weights=None, delta=None):
 
 
 def scan_chunk_rows(w: torch.Tensor) -> torch.Tensor:
-    """(n,) -> (SCAN_CHUNKS, L) zero-padded chunk rows: the scan grid."""
-    n = w.shape[0]
+    """(..., n) -> (..., SCAN_CHUNKS, L) zero-padded chunk rows: the scan
+    grid of each distribution."""
+    n = w.shape[-1]
     L = -(-n // SCAN_CHUNKS)
-    return F.pad(w, (0, SCAN_CHUNKS * L - n)).reshape(SCAN_CHUNKS, L)
+    rows = F.pad(w, (0, SCAN_CHUNKS * L - n))
+    return rows.reshape(*w.shape[:-1], SCAN_CHUNKS, L)
 
 
 def chunk_bounds(n: int) -> np.ndarray:
@@ -71,50 +73,61 @@ def _raw_row_scan(rows: torch.Tensor) -> torch.Tensor:
 
 
 def chunked_cumsum(w: torch.Tensor, row_scan=None) -> torch.Tensor:
-    """Inclusive prefix sum over the fixed ``SCAN_CHUNKS`` grid.
+    """Inclusive prefix sum over the fixed ``SCAN_CHUNKS`` grid, for one
+    distribution (n,) or a stack of them (B, n).
 
-    Each row is scanned independently by ``row_scan`` (default: the
-    ``cdf_scan`` kernel in raw mode, or its plain version for a CPU tensor),
-    then a serial carry over the row totals is added back."""
-    n = w.shape[0]
-    rows = scan_chunk_rows(w)
-    local = (_raw_row_scan if row_scan is None else row_scan)(rows)
-    totals = local[:, -1]
-    carry = torch.cat([totals.new_zeros(1), torch.cumsum(totals, 0)[:-1]])
-    return (local + carry[:, None]).reshape(-1)[:n]
+    Every chunk row of every distribution is scanned independently by
+    ``row_scan`` in one launch (default: the ``cdf_scan`` kernel in raw
+    mode, or its plain version for a CPU tensor); the serial carry over each
+    distribution's chunk totals is one more raw row scan. A row of a stack
+    therefore gets the same bits as the same weights scanned alone."""
+    scan = _raw_row_scan if row_scan is None else row_scan
+    n = w.shape[-1]
+    rows = scan_chunk_rows(w.reshape(-1, n))           # (B, 64, L)
+    B, C, L = rows.shape
+    local = scan(rows.reshape(B * C, L)).reshape(B, C, L)
+    carry = scan(local[:, :, -1].contiguous())         # (B, 64) inclusive
+    carry = F.pad(carry[:, :-1], (1, 0))               # exclusive
+    out = (local + carry[:, :, None]).reshape(B, C * L)[:, :n]
+    return out.reshape(w.shape)
 
 
 def _cummax(c: torch.Tensor) -> torch.Tensor:
-    """Running maximum of a 1-D tensor, in two levels over rows of about
+    """Running maximum along the last axis, in two levels over rows of about
     sqrt(n): ``torch.cummax`` scans a 1-D CUDA tensor within one thread
     block. Max is exact, so the result equals ``torch.cummax`` bit for bit."""
-    n = c.shape[0]
+    n = c.shape[-1]
     L = max(1, math.isqrt(n))
-    rows = F.pad(c, (0, -(-n // L) * L - n)).reshape(-1, L)
-    local = torch.cummax(rows, 1).values
-    carry = torch.cummax(local[:, -1], 0).values
-    carry = torch.cat([carry.new_full((1,), -math.inf), carry[:-1]])
-    return torch.maximum(local, carry[:, None]).reshape(-1)[:n]
+    R = -(-n // L)
+    flat = c.reshape(-1, n)
+    rows = F.pad(flat, (0, R * L - n)).reshape(flat.shape[0], R, L)
+    local = torch.cummax(rows, 2).values
+    carry = torch.cummax(local[:, :, -1], 1).values
+    carry = F.pad(carry[:, :-1], (1, 0), value=-math.inf)
+    out = torch.maximum(local, carry[:, :, None]).reshape(flat.shape[0], R * L)
+    return out[:, :n].reshape(c.shape)
 
 
 def finalize_cdf(raw: torch.Tensor) -> torch.Tensor:
-    """Raw inclusive scan (n,) -> normalized cdf (n+1,) with exact endpoints.
+    """Raw inclusive scan (..., n) -> normalized cdf (..., n+1) with exact
+    endpoints, row by row.
 
     Divides by a same-device tensor: PyTorch's CUDA division by a host
     scalar multiplies by its reciprocal, which is not IEEE division."""
-    total = raw[-1:].expand_as(raw)
+    total = raw[..., -1:].expand_as(raw)
     c = torch.clamp(raw / total, 0.0, 1.0).to(torch.float32)
-    c[-1] = 1.0
+    c[..., -1] = 1.0
     c = _cummax(c)  # monotone under float rounding
-    return torch.cat([c.new_zeros(1), c])
+    return F.pad(c, (1, 0))
 
 
 def build_cdf(weights, row_scan=None, device="cuda") -> torch.Tensor:
     """Normalized inclusive prefix sum with exact 0/1 endpoints.
 
-    Returns ``cdf`` of shape ``(n+1,)`` float32 on ``device`` with
-    cdf[0] == 0 and cdf[n] == 1. Weights must be non-negative with a positive
-    sum; ties (zero-width intervals) are permitted."""
+    ``weights`` (n,) gives ``cdf`` (n+1,) float32 on ``device`` with
+    cdf[0] == 0 and cdf[n] == 1; a stack (B, n) gives (B, n+1), each row
+    bit-equal to that row's own ``build_cdf``. Weights must be non-negative
+    with a positive sum; ties (zero-width intervals) are permitted."""
     w = to_device(weights, device, torch.float32)
     return finalize_cdf(chunked_cumsum(w, row_scan=row_scan))
 

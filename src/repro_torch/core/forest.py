@@ -26,6 +26,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import to_device
 from repro_torch.kernels.forest_delta import forest_delta
@@ -79,14 +80,20 @@ def _block_max_table(d: torch.Tensor, levels: int) -> list[torch.Tensor]:
     return tables
 
 
-def _nearest_greater(d: torch.Tensor):
+def _nearest_greater(d: torch.Tensor, span: int | None = None):
     """For every separator k return (dL, L, dR, R):
 
     L(k): nearest l < k with d[l] >  d[k]  (virtual boundary -1, SENTINEL)
     R(k): nearest r > k with d[r] >= d[k]  (virtual boundary len, SENTINEL)
-    """
+
+    ``span`` caps the search distance (default: the whole array). Stacked
+    rows pass their row's separator count: every row boundary holds the
+    sentinel, which stops every in-cell search inside its own row, so the
+    sparse table needs only ``ceil(log2(span))`` levels, not the flat
+    array's."""
     s = d.shape[0]
-    levels = max(1, int(np.ceil(np.log2(max(s, 2)))))
+    span = s if span is None else span
+    levels = max(1, int(np.ceil(np.log2(max(span, 2)))))
     T = _block_max_table(d, levels)
     k = torch.arange(s, dtype=torch.int64, device=d.device)
     top = max(s - 1, 0)
@@ -136,34 +143,47 @@ def _build_cell_trees(
     cells: torch.Tensor,
     *,
     m: int,
+    rows: int = 1,
     fallback_slack: int = 2,
 ):
-    """Per-cell radix trees over all ``m`` guide cells (single device).
+    """Per-cell radix trees over all guide cells of ``rows`` stacked
+    distributions of equal width, in one flat pass.
+
+    ``data`` holds the rows' lower bounds end to end, ``cells`` each leaf's
+    flat cell id ``row*m + local cell`` and ``d`` the flat separator
+    distances, with the sentinel at every row boundary. Trees never cross a
+    boundary, so every reference written is made row-local as it is
+    written (a node id or leaf index minus its row's start): row ``b`` of
+    the result equals the single build of row ``b`` bit for bit.
 
     JAX's ``.at[idx].set(..., mode="drop")`` with index ``n`` as the drop
     slot becomes a write into an ``(n+1,)`` buffer that is sliced at the
     end. Real targets are unique by construction; only the drop slot takes
     duplicates, so CUDA's unordered scatter stays deterministic.
 
-    Returns ``(left, right, table, cell_first[:m], fallback)``.
+    Returns flat ``(left, right, table, cell_first[:m] per row, fallback)``.
     """
     n = data.shape[0]
+    W = n // rows
     dev = data.device
     i64 = torch.int64
     S = DIST_SENTINEL
     i = torch.arange(n, dtype=i64, device=dev)
+    row_start = i - i % W
 
     grid_i = torch.arange(m, dtype=torch.int32, device=dev).to(torch.float32)
     grid = grid_i / torch.full_like(grid_i, float(m))
-    cell_first = torch.searchsorted(data, grid, right=True) - 1
-    cell_first = torch.clamp(cell_first, 0, n - 1)
+    cell_first = torch.searchsorted(
+        data.view(rows, W), grid.expand(rows, m).contiguous(), right=True) - 1
+    cell_first = torch.clamp(cell_first, 0, W - 1).reshape(-1)
 
-    counts = torch.zeros(m, dtype=i64, device=dev).scatter_add_(
+    counts = torch.zeros(rows * m, dtype=i64, device=dev).scatter_add_(
         0, cells, torch.ones_like(cells))
-    first_leaf = torch.full((m,), n, dtype=i64, device=dev).scatter_reduce_(
+    first_leaf = torch.full((rows * m,), n, dtype=i64, device=dev).scatter_reduce_(
         0, cells, i, "amin", include_self=True)
     f_safe = torch.clamp(first_leaf, 0, n - 1)
-    left_overlap = data[f_safe] > grid
+    f_local = f_safe - row_start[f_safe]
+    left_overlap = data[f_safe] > grid.repeat(rows)
     overlap = torch.where(counts > 0, counts + left_overlap.to(i64), 1)
 
     left = torch.full((n + 1,), INVALID, dtype=i64, device=dev)
@@ -174,23 +194,23 @@ def _build_cell_trees(
         return torch.where(mask, idx, n)
 
     if n > 1:
-        dL, L, dR, R = _nearest_greater(d)
+        dL, L, dR, R = _nearest_greater(d, span=W - 1)
         k = torch.arange(n - 1, dtype=i64, device=dev)
         in_cell = d != S
         is_root = in_cell & (dL == S) & (dR == S)
         par_is_L = dL <= dR
         parent_node = torch.where(par_is_L, L, R) + 1
-        node_id = k + 1
+        node_local = (k + 1) - row_start[1:]
 
         # Internal non-root separators -> child of parent separator's node.
         inner = in_cell & ~is_root
-        right[drop(inner & par_is_L, parent_node)] = node_id
-        left[drop(inner & ~par_is_L, parent_node)] = node_id
+        right[drop(inner & par_is_L, parent_node)] = node_local
+        left[drop(inner & ~par_is_L, parent_node)] = node_local
         node_parent[drop(inner, k + 1)] = parent_node
 
         # Cell roots -> right child of the cell's root slot.
         root_slot = first_leaf[cells[:-1]]
-        right[drop(is_root, root_slot)] = node_id
+        right[drop(is_root, root_slot)] = node_local
         node_parent[drop(is_root, k + 1)] = root_slot
 
     # Leaves.
@@ -203,7 +223,7 @@ def _build_cell_trees(
     lone = (dl == S) & (dr == S)
     lpar_is_left = dl <= dr
     lparent = torch.where(lpar_is_left, i, i + 1)  # sep i-1 -> node i
-    leaf_ref = ~i
+    leaf_ref = ~(i - row_start)
     right[drop(~lone & lpar_is_left, lparent)] = leaf_ref
     left[drop(~lone & ~lpar_is_left, lparent)] = leaf_ref
     # A lone leaf is its cell's entire tree: right child of its own slot.
@@ -211,12 +231,13 @@ def _build_cell_trees(
     leaf_parent = torch.where(lone, i, lparent)
 
     # Manual left child of every root slot: the interval overlapping the
-    # cell from the left. Written after the leaves, which it overrides.
-    manual = ~torch.clamp(f_safe - 1, min=0)
+    # cell from the left (clamped at the row start). Written after the
+    # leaves, which it overrides.
+    manual = ~torch.clamp(f_local - 1, min=0)
     left[drop(counts > 0, f_safe)] = manual
 
     table = torch.where(
-        counts == 0, ~cell_first, torch.where(overlap == 1, ~f_safe, f_safe)
+        counts == 0, ~cell_first, torch.where(overlap == 1, ~f_local, f_local)
     ).to(torch.int32)
 
     # Traversal depth per leaf -> per-cell fallback flags.
@@ -229,7 +250,7 @@ def _build_cell_trees(
         anc = torch.where(live, node_parent[torch.clamp(anc, min=0)], anc)
     depth += 1  # the leaf resolution step itself
 
-    cell_depth = torch.zeros(m, dtype=i64, device=dev).scatter_reduce_(
+    cell_depth = torch.zeros(rows * m, dtype=i64, device=dev).scatter_reduce_(
         0, cells, depth, "amax", include_self=True)
     fallback = (overlap > 1) & (
         cell_depth > _allowed_depth(overlap) + fallback_slack)
@@ -243,21 +264,33 @@ def forest_from_cdf(
 ) -> RadixForest:
     """CDF (n+1,) -> forest with ``m`` guide cells, on ``device``.
 
-    ``d`` optionally feeds precomputed separator distances (int64 holding
-    uint32 values); they must match :func:`_separator_distances` bitwise or
-    the forest silently diverges."""
+    A stack of CDFs (B, n+1) builds all B forests in one flat pass (the
+    fields then carry a leading B axis); row ``b`` is bit-identical to
+    ``forest_from_cdf(cdf[b], m)``. ``d`` optionally feeds precomputed
+    separator distances (int64 holding uint32 values, one distribution);
+    they must match :func:`_separator_distances` bitwise or the forest
+    silently diverges."""
     cdf = to_device(cdf, device, torch.float32)
-    n = cdf.shape[0] - 1
-    data = lower_bounds(cdf).contiguous()
-    cells = _cells(data, m)
+    stacked = cdf.reshape(-1, cdf.shape[-1])
+    rows, W = stacked.shape[0], stacked.shape[1] - 1
+    data = lower_bounds(stacked).reshape(-1).contiguous()
+    i = torch.arange(rows * W, dtype=torch.int64, device=cdf.device)
+    cells = _cells(data, m) + (i // W) * m
     if d is None:
         d = _separator_distances(data, m)
+        d[W - 1::W] = DIST_SENTINEL  # row boundaries
     else:
+        if rows != 1:
+            raise ValueError("precomputed distances are for one distribution")
         d = d.to(device=cdf.device, dtype=torch.int64)
     left, right, table, cf, fallback = _build_cell_trees(
-        data, d, cells, m=m, fallback_slack=fallback_slack)
-    cell_first = torch.cat([cf, cf.new_full((1,), n - 1)])
-    return RadixForest(cdf, table, left, right, cell_first, fallback)
+        data, d, cells, m=m, rows=rows, fallback_slack=fallback_slack)
+    cell_first = F.pad(cf.view(rows, m), (0, 1), value=W - 1)
+    f = RadixForest(stacked, table.view(rows, m), left.view(rows, W),
+                    right.view(rows, W), cell_first, fallback.view(rows, m))
+    if cdf.dim() == 1:
+        f = RadixForest(*(x[0] for x in f))
+    return f
 
 
 def build_forest_from_cdf(

@@ -8,6 +8,7 @@ bit-identical to the JAX package's. A copy of the subset the port needs.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 QMC_BITS = 24                  # fixed-point resolution of the stream points
 QMC_SCALE = np.float32(2.0 ** -QMC_BITS)
@@ -42,3 +43,30 @@ def qmc_offset_bits_np(offsets01) -> np.ndarray:
     """Quantize [0,1) rotation offsets to the stream's 24-bit grid."""
     bits = (np.asarray(offsets01, np.float64) * (1 << QMC_BITS)).astype(np.uint32)
     return np.minimum(bits, _QMC_MASK)
+
+
+# Tensor twins. PyTorch has no uint32 arithmetic to speak of: the device
+# stream state holds 32-bit values as int32 bit views (the form the drain
+# kernel reads), and these functions widen either int32 bits or int64 values
+# to int64 masked to 32 bits, so the points equal the numpy pipeline's.
+_M32 = 0xFFFFFFFF
+
+
+def reverse_bits32(x: torch.Tensor) -> torch.Tensor:
+    """Bit-reverse 32-bit values (int32 bits or int64 values) -> int64."""
+    b = x.to(torch.int64) & _M32
+    for mask, shift in ((0x55555555, 1), (0x33333333, 2), (0x0F0F0F0F, 4),
+                        (0x00FF00FF, 8), (0x0000FFFF, 16)):
+        b = ((b & mask) << shift) | ((b >> shift) & mask)
+    return b
+
+
+def qmc_bits24(counter: torch.Tensor, offset_bits: torch.Tensor) -> torch.Tensor:
+    """Counter -> rotated 24-bit stream point (integer form, int64)."""
+    rev = reverse_bits32(counter) >> (32 - QMC_BITS)
+    return (rev + (offset_bits.to(torch.int64) & _M32)) & int(_QMC_MASK)
+
+
+def qmc_point(counter: torch.Tensor, offset_bits: torch.Tensor) -> torch.Tensor:
+    """Rotated stream point as exact float32 in [0, 1)."""
+    return qmc_bits24(counter, offset_bits).to(torch.float32) * float(QMC_SCALE)

@@ -26,7 +26,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-_SOURCES = ("cdf_scan.cu", "forest_delta.cu", "forest_sample.cu")
+_SOURCES = ("cdf_scan.cu", "forest_delta.cu", "forest_sample.cu",
+            "forest_sample_batched.cu", "alias_build.cu", "alias_sample.cu")
 _HEADERS = ("common.cuh",)
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -40,6 +41,12 @@ _SIGNATURES = {
     "rt_cdf_scan": (_P, _P, _I, _I, _I, _I, _P),
     "rt_forest_delta": (_P, _P, _I, _I, _P),
     "rt_forest_sample": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "rt_forest_delta_update": (_P, _P, _P, _P, _I, _I, _P),
+    "rt_forest_sample_batched": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "rt_alias_build": (_P, _P, _P, _P, _I, _I, _P),
+    "rt_alias_sample_batched": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "rt_alias_smem_max_n": (),
 }
 
 

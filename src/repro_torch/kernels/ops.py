@@ -1,7 +1,12 @@
 """Kernel entry points over the port's data structures.
 
 Each wrapper dispatches on its tensors' device: CPU tensors run the plain
-PyTorch version, CUDA tensors launch the hand-written kernel or raise.
+PyTorch version, CUDA tensors launch the hand-written kernel or raise. The
+batched entry points take any object with the stacked fields
+(``BatchedForest``: cdf, table, left, right, cell_first, fallback;
+``BatchedAlias``: q, alias), so the kernel layer never imports the pool
+layer. The batched descent always receives the side tables, so no host
+round trip asks whether any row flagged a cell.
 """
 from __future__ import annotations
 
@@ -9,9 +14,16 @@ import torch
 
 from repro_torch.core.forest import RadixForest
 
+from .alias_build import alias_build_batched as _alias_build_batched
+from .alias_sample import alias_sample_batched as _alias_sample_batched
 from .cdf_scan import cdf_scan
 from .forest_delta import forest_delta as _forest_delta
+from .forest_delta import forest_delta_update as _forest_delta_update
 from .forest_sample import forest_sample as _forest_sample
+from .forest_sample import forest_sample_batched as _forest_sample_batched
+from .forest_sample import (
+    forest_sample_batched_streams as _forest_sample_batched_streams,
+)
 
 
 def fused_cdf(x: torch.Tensor, softmax: bool = True) -> torch.Tensor:
@@ -31,3 +43,41 @@ def forest_sample(forest: RadixForest, xi: torch.Tensor) -> torch.Tensor:
 def forest_delta(data: torch.Tensor, m: int) -> torch.Tensor:
     """Separator distances for forest construction."""
     return _forest_delta(data, m)
+
+
+def forest_delta_update(data_old: torch.Tensor, data_new: torch.Tensor, m: int):
+    """New separator distances + changed-leaf-bits mask for a weight update."""
+    return _forest_delta_update(data_old, data_new, m)
+
+
+def _stack(forest):
+    return (forest.cdf, forest.table, forest.left, forest.right,
+            forest.cell_first, forest.fallback)
+
+
+def forest_sample_batched(forest, dist_id: torch.Tensor, xi: torch.Tensor,
+                          coalesce: bool = True) -> torch.Tensor:
+    """Mixed-batch Algorithm 2 over B stacked forests (one launch). Lanes
+    with ``dist_id < 0`` are sentinels resolved to 0; ``coalesce`` toggles
+    the stable sort-by-row pre-pass (elementwise identical either way)."""
+    return _forest_sample_batched(*_stack(forest), dist_id, xi, coalesce=coalesce)
+
+
+def forest_sample_batched_streams(forest, dist_id: torch.Tensor,
+                                  counter: torch.Tensor, offset_bits: torch.Tensor,
+                                  coalesce: bool = True):
+    """Stream-aware mixed-batch drain: QMC state in, ``(idx, xi)`` out."""
+    return _forest_sample_batched_streams(
+        *_stack(forest), dist_id, counter, offset_bits, coalesce=coalesce)
+
+
+def alias_build_batched(weights: torch.Tensor):
+    """Batched split-and-pack alias construction: (B, n) stacked weights ->
+    packed ``(q, alias)`` (B, n) stacks, one launch."""
+    return _alias_build_batched(weights)
+
+
+def alias_sample_batched(table, dist_id: torch.Tensor, xi: torch.Tensor,
+                         coalesce: bool = True) -> torch.Tensor:
+    """Mixed-batch O(1) alias drain over B stacked tables (one launch)."""
+    return _alias_sample_batched(table.q, table.alias, dist_id, xi, coalesce=coalesce)

@@ -6,6 +6,8 @@ path calls them for a CUDA tensor.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 # repro_torch.core imports the kernel wrappers, which import this module,
@@ -73,3 +75,133 @@ def ref_forest_sample(
         nxt = torch.where(xi < cdf[jj], left[jj], right[jj])
         j = torch.where(active, nxt, j)
     return (~j).to(torch.int32)
+
+
+def ref_forest_delta_update(data_old: torch.Tensor, data_new: torch.Tensor, m: int):
+    """Distances of the new lower bounds (as :func:`ref_forest_delta`) and
+    the (n,) mask of leaves whose float32 bit pattern moved."""
+    changed = data_old.view(torch.int32) != data_new.view(torch.int32)
+    return ref_forest_delta(data_new, m), changed
+
+
+def _batched_descent(cdf, table, left, right, cell_first, fallback, dist_id, xi):
+    """Mixed-batch Algorithm 2 with 2-D gathers: lane q walks row
+    ``dist_id[q]`` (clamped to B-1); sentinel lanes (``dist_id < 0``) start
+    at leaf ``~0`` and never descend."""
+    from repro_torch.core.forest import MAX_DEPTH
+    from repro_torch.core.sample import _guide_cell
+
+    B, m = table.shape
+    raw = dist_id.long()
+    valid = raw >= 0
+    did = torch.clamp(raw, 0, B - 1)
+    g = _guide_cell(xi, m)
+    j = torch.where(valid, table[did, g].long(), -1)
+    flagged = fallback[did, g] & (j >= 0)
+    lo, hi = cell_first[did, g].long(), cell_first[did, g + 1].long()
+    for _ in range(32):
+        mid = (lo + hi + 1) >> 1
+        ge = xi >= cdf[did, mid]
+        lo, hi = torch.where(ge, mid, lo), torch.where(ge, hi, mid - 1)
+    j = torch.where(flagged, ~lo, j)
+    n = left.shape[1]
+    for _ in range(MAX_DEPTH):
+        active = j >= 0
+        if not bool(active.any()):
+            break
+        jj = torch.clamp(j, 0, n - 1)
+        nxt = torch.where(xi < cdf[did, jj], left[did, jj], right[did, jj]).long()
+        j = torch.where(active, nxt, j)
+    return (~j).to(torch.int32)
+
+
+def ref_forest_sample_batched(
+    cdf, table, left, right, cell_first, fallback, dist_id, xi
+) -> torch.Tensor:
+    """Lane by lane as ``core.sample.sample_forest`` of the lane's row:
+    guide lookup, 32-trip bisection in flagged cells, then descent until
+    every lane holds a leaf. Sentinel lanes resolve to 0."""
+    return _batched_descent(cdf, table, left, right, cell_first, fallback,
+                            dist_id, xi)
+
+
+def ref_forest_sample_batched_streams(
+    cdf, table, left, right, cell_first, fallback, dist_id, counter, offset_bits
+):
+    """The exact 24-bit stream point of each lane (``core.lds.qmc_point``
+    of the int32 counter and offset bits), then the batched descent.
+    Returns ``(idx, xi)``."""
+    from repro_torch.core.lds import qmc_point
+
+    xi = qmc_point(counter, offset_bits)
+    return _batched_descent(cdf, table, left, right, cell_first, fallback,
+                            dist_id, xi), xi
+
+
+def ref_alias_build_batched(weights: torch.Tensor):
+    """(B, n) weights -> packed ``(q, alias)`` (B, n) float32 / int32: the
+    positional split-and-pack row core of the JAX package's
+    ``alias_split_pack_rows``, in torch. Demand and supply are cumsums of
+    masked per-cell terms over the original cell order, pinned bit-flat
+    between member cells by a running max; three searches per cell then
+    land on original heavy indices. Zero-weight (padded) cells become
+    q == 0 lights that are never an alias target.
+
+    The per-cell terms are float32 as in the JAX core, but the two tapes
+    (and the debts taken from them) are carried in float64: in float32 the
+    tapes of a 65536-cell row reach ~4e4, where an ulp is ~4e-3, and
+    boundary ties between them misroute whole light cells (mass off by up
+    to 1 per cell). On dyadic rows both precisions are exact, so the
+    tables equal the JAX core's bit for bit."""
+    w = weights.to(torch.float32)
+    R, n = w.shape
+    pos = torch.arange(n, dtype=torch.int64, device=w.device).expand(R, n)
+    wsum = w.sum(dim=-1, keepdim=True)
+    npi = w / wsum.expand_as(w) * float(n)
+    light = npi < 1.0
+    heavy = ~light
+    zero = torch.zeros_like(npi)
+    dvals = torch.where(light, 1.0 - npi, zero).double()
+    svals = torch.where(heavy, npi - 1.0, zero).double()
+    ninf = torch.full_like(dvals, -math.inf)
+    D = torch.cummax(torch.where(light, torch.cumsum(dvals, -1), ninf), -1).values
+    S = torch.cummax(torch.where(heavy, torch.cumsum(svals, -1), ninf), -1).values
+    total = torch.minimum(D[:, -1:], S[:, -1:])
+    has_both = light.any(-1, keepdim=True) & heavy.any(-1, keepdim=True)
+    last_heavy = torch.clamp(
+        torch.where(heavy, pos, -1).amax(-1, keepdim=True), min=0)
+
+    def pick(p):  # a search result, or the last heavy past the end
+        return torch.where(p < n, torch.clamp(p, max=n - 1), last_heavy)
+
+    alias_light = pick(torch.searchsorted(S, D - dvals, right=True))
+    x = S
+    pj = torch.searchsorted(D, x, right=False)
+    inside = (pj < n) & (x < total) & (svals > 0.0)
+    Dj = torch.gather(D, 1, torch.clamp(pj, max=n - 1))
+    debt = torch.clamp(torch.where(inside, Dj - x, torch.zeros_like(x)), 0.0, 1.0)
+    nxt = pick(torch.searchsorted(S, x, right=True))
+    alias_heavy = torch.where(debt > 0.0, nxt, pos)
+
+    q = torch.where(light, npi, (1.0 - debt).to(torch.float32))
+    alias = torch.where(light, alias_light, alias_heavy)
+    q = torch.where(has_both, q, torch.ones_like(q))
+    alias = torch.where(has_both, alias, pos)
+    return q.to(torch.float32), alias.to(torch.int32)
+
+
+def ref_alias_sample_batched(q, alias, dist_id, xi) -> torch.Tensor:
+    """Float32 scale, truncate, clamp of the fraction into [0, 1), one
+    comparison, with 2-D gathers; sentinel lanes resolve to 0."""
+    from repro_torch.core.alias import ALIAS_FRAC_MAX
+
+    B, n = q.shape
+    raw = dist_id.long()
+    valid = raw >= 0
+    did = torch.clamp(raw, 0, B - 1)
+    scaled = xi * float(n)
+    cell = torch.clamp(scaled.to(torch.int32), 0, n - 1)
+    frac = torch.clamp(scaled - cell.to(torch.float32), 0.0, float(ALIAS_FRAC_MAX))
+    cl = cell.long()
+    out = torch.where(frac < q[did, cl], cell, alias[did, cl])
+    return torch.where(valid, out, torch.zeros_like(out)).to(torch.int32)

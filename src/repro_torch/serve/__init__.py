@@ -1,4 +1,4 @@
 """Serving samplers of the port."""
-from .sampler import ForestSampler, QmcStreams
+from .sampler import DeviceQmcStreams, ForestSampler, PooledForestSampler, QmcStreams
 
-__all__ = ["ForestSampler", "QmcStreams"]
+__all__ = ["DeviceQmcStreams", "ForestSampler", "PooledForestSampler", "QmcStreams"]

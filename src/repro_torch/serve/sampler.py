@@ -1,10 +1,16 @@
-"""Shared-distribution serving sampler with per-slot QMC uniform streams.
+"""Serving samplers with per-slot QMC uniform streams.
 
 :class:`QmcStreams` is the numpy stream oracle (the exact 24-bit fixed-point
 pipeline of :mod:`repro_torch.core.lds`; same seed => bit-equal points and
-counters to the JAX package's). :class:`ForestSampler` builds the radix
-forest once on its device and inverts the CDF at the slots' stream points
-(monotone warp, so the stratification survives).
+counters to the JAX package's). :class:`DeviceQmcStreams` keeps the same
+state as tensors on the card and advances it in one pre-pass per drain
+(:func:`_stream_prepass`), bit-equal to the oracle, duplicate slots
+included. :class:`ForestSampler` builds one radix forest on its device and
+inverts the CDF at the slots' stream points (monotone warp, so the
+stratification survives). :class:`PooledForestSampler` serves many small
+tenant distributions from one :class:`~repro_torch.pool.ForestPool`: QMC
+tenants drain through the stream-aware descent kernel, PRNG tenants through
+the alias kernels.
 """
 from __future__ import annotations
 
@@ -13,9 +19,14 @@ import torch
 
 from repro_torch.core.cdf import normalize_weights, updated_weights
 from repro_torch.core.forest import build_forest
-from repro_torch.core.lds import QMC_SCALE, qmc_bits24_np, qmc_offset_bits_np
+from repro_torch.core.lds import (
+    QMC_SCALE,
+    qmc_bits24_np,
+    qmc_offset_bits_np,
+    qmc_point,
+)
 from repro_torch.core.sample import sample_forest
-from repro_torch.device import resolve
+from repro_torch.device import resolve, to_device
 
 
 class QmcStreams:
@@ -116,3 +127,216 @@ class ForestSampler:
         xi = self.streams.next(slots)
         idx = sample_forest(self.forest, xi, device=self.device)
         return idx.cpu().numpy()
+
+
+def _stream_prepass(counters: torch.Tensor, offset_bits: torch.Tensor,
+                    slots: torch.Tensor):
+    """Device twin of one ``QmcStreams.next`` drain: per-occurrence rank
+    (stable sort, equal to ``_occurrence_rank_np``), per-lane rank-adjusted
+    counters and offsets, the drawn points, and the advanced per-slot
+    counters. The 32-bit state is int32 bit views in and out: sums are
+    taken in int64 and narrowed, which keeps the low 32 bits (the uint32
+    wrap). Sentinel lanes (``slots < 0``) draw a dead point and advance
+    nothing."""
+    S, Q = counters.shape[0], slots.shape[0]
+    valid = slots >= 0
+    # sentinels sort after every real slot so they never perturb real ranks
+    key = torch.where(valid, slots, S)
+    order = torch.sort(key, stable=True).indices
+    sk = key[order]
+    first = torch.searchsorted(sk, sk, right=False)
+    rank = torch.empty(Q, dtype=torch.int64, device=slots.device)
+    rank[order] = torch.arange(Q, device=slots.device) - first
+    sl = torch.where(valid, slots, 0)
+    zero = torch.zeros(Q, dtype=torch.int32, device=slots.device)
+    ctr = torch.where(valid, (counters[sl].to(torch.int64) + rank).to(torch.int32), zero)
+    off = torch.where(valid, offset_bits[sl], zero)
+    new_counters = counters.to(torch.int64).index_add(
+        0, sl, valid.to(torch.int64)).to(torch.int32)
+    return ctr, off, qmc_point(ctr, off), new_counters
+
+
+def _i32_bits(a: np.ndarray) -> np.ndarray:
+    return np.array(a, np.uint32).view(np.int32)
+
+
+class DeviceQmcStreams:
+    """Device twin of :class:`QmcStreams`: the per-slot counters and
+    Cranley-Patterson offset bits live as tensors on ``device`` (int32 bit
+    views of the uint32 values, the form the stream-aware drain kernel
+    reads) and a drain advances them in :func:`_stream_prepass`, with no
+    host-side counter mutation. Same seed => bit-equal offsets, counters
+    and points to the host class.
+
+    ``draw`` is the pool-facing protocol: the per-lane rank-adjusted
+    ``(counter, offset_bits, xi)`` that feed the stream-aware drain kernel
+    (which recomputes the same ``xi``). ``next`` matches the host API."""
+
+    def __init__(self, n_slots: int, seed: int = 0, device="cuda"):
+        rng = np.random.default_rng(seed)
+        self.device = resolve(device)
+        self.offset_bits = to_device(
+            _i32_bits(qmc_offset_bits_np(rng.random(n_slots))), self.device)
+        self.counters = torch.zeros(n_slots, dtype=torch.int32, device=self.device)
+
+    @property
+    def n_slots(self) -> int:
+        return int(self.offset_bits.shape[0])
+
+    @property
+    def offsets(self) -> np.ndarray:
+        return self.offset_bits.cpu().numpy().astype(np.float32) * QMC_SCALE
+
+    def draw(self, slots):
+        """Advance every requested slot occurrence and return the per-lane
+        stream state ``(counter, offset_bits, xi)``, each (Q,) on the
+        device (int32 bits, int32 bits, float32)."""
+        s = to_device(np.asarray(slots, np.int64), self.device)
+        ctr, off, xi, self.counters = _stream_prepass(self.counters, self.offset_bits, s)
+        return ctr, off, xi
+
+    def next(self, slots: np.ndarray | None = None) -> np.ndarray:
+        """Host-API-compatible drain (returns the points as numpy)."""
+        if slots is None:
+            slots = np.arange(self.n_slots)
+        return self.draw(slots)[2].cpu().numpy()
+
+    def snapshot(self) -> dict:
+        return dict(kind="device_qmc_streams",
+                    offset_bits=self.offset_bits.cpu().numpy().view(np.uint32).copy(),
+                    counters=self.counters.cpu().numpy().view(np.uint32).copy())
+
+    @classmethod
+    def restore(cls, state: dict, device="cuda") -> "DeviceQmcStreams":
+        """From a stream snapshot of either package (host or device kind)."""
+        s = cls.__new__(cls)
+        s.device = resolve(device)
+        s.offset_bits = to_device(_i32_bits(state["offset_bits"]), s.device)
+        s.counters = to_device(_i32_bits(state["counters"]), s.device)
+        return s
+
+
+def _restore_streams(state: dict | None, device):
+    """A 1-D stream snapshot back to its class by ``kind``."""
+    if state is None:
+        return None
+    if state["kind"] == "qmc_streams":
+        return QmcStreams.restore(state)
+    if state["kind"] == "device_qmc_streams":
+        return DeviceQmcStreams.restore(state, device=device)
+    raise NotImplementedError(
+        f"stream kind {state['kind']!r} is not ported yet (ROADMAP A5)")
+
+
+def _rng_state(rng):
+    return None if rng is None else rng.bit_generator.state
+
+
+def _rng_restore(state):
+    if state is None:
+        return None
+    rng = np.random.default_rng()
+    rng.bit_generator.state = state
+    return rng
+
+
+class PooledForestSampler:
+    """Multi-tenant serving sampler: many per-request categoricals (draft
+    priors, per-client mixtures, per-cell densities) in ONE
+    :class:`~repro_torch.pool.ForestPool` on ``device``, drained in bulk.
+
+    ``add``/``add_many`` admit tenants and return pool handles; ``sample``
+    resolves one draw per slot against that slot's tenant. Under
+    ``streams="qmc"`` (default) the slot streams live on the device
+    (:class:`DeviceQmcStreams`) and a drain is one ``sample_streams`` call:
+    one pre-pass ranks duplicate slots and advances every counter, and each
+    touched forest size class resolves its lanes with one
+    ``forest_sample_batched_streams`` launch that computes the points in
+    the kernel. ``device_streams=False`` uses the host :class:`QmcStreams`
+    oracle instead (equal draws). ``streams="prng"`` draws uniforms from one
+    seeded numpy generator. ``method="auto"`` picks alias under PRNG
+    streams and forest under QMC streams: the descent is spent only where a
+    stratified stream would be destroyed by the non-monotone alias map.
+    Slot streams keep their counters across tenant churn."""
+
+    def __init__(self, n_slots: int = 64, seed: int = 0, min_class: int = 8,
+                 m: int | None = None, device_streams: bool = True,
+                 streams: str = "qmc", policy: str = "reject", device="cuda"):
+        from repro_torch.pool import ForestPool
+
+        if streams not in ("qmc", "prng"):
+            raise ValueError(f"streams must be 'qmc' or 'prng', got {streams!r}")
+        self.device = resolve(device)
+        self.pool = ForestPool(min_class=min_class, m=m, policy=policy,
+                               device=self.device)
+        self.stream_kind = streams
+        self.device_streams = device_streams and streams == "qmc"
+        if streams == "qmc":
+            self.streams = (
+                DeviceQmcStreams(n_slots, seed, device=self.device)
+                if device_streams else QmcStreams(n_slots, seed))
+            self.rng = None
+        else:
+            self.streams = None
+            self.rng = np.random.default_rng(seed)
+
+    def _resolve(self, method: str) -> str:
+        if method == "auto":
+            return "alias" if self.stream_kind == "prng" else "forest"
+        return method
+
+    def add(self, weights, method: str = "auto"):
+        """Admit one tenant; returns its pool handle."""
+        return self.pool.insert(weights, method=self._resolve(method))
+
+    def add_many(self, weights_list, method="auto"):
+        """Admit an admission wave through the batched builders. ``method``
+        is one choice for the wave or a per-tenant sequence."""
+        if isinstance(method, str):
+            methods = [self._resolve(method)] * len(weights_list)
+        else:
+            methods = [self._resolve(m) for m in method]
+        return self.pool.insert_many(weights_list, method=methods)
+
+    def update(self, handle, weights=None, *, delta=None) -> None:
+        self.pool.update_weights(handle, weights, delta=delta)
+
+    def remove(self, handle) -> None:
+        self.pool.evict(handle)
+
+    def sample(self, handles, slots: np.ndarray) -> np.ndarray:
+        """One draw per slot from that slot's tenant distribution:
+        ``handles[i]`` pairs with ``slots[i]``'s stream."""
+        if self.stream_kind == "prng":
+            xi = self.rng.random(len(slots)).astype(np.float32)
+            return self.pool.sample(handles, xi)
+        if self.device_streams:
+            return self.pool.sample_streams(handles, np.asarray(slots), self.streams)
+        return self.pool.sample(handles, self.streams.next(np.asarray(slots)))
+
+    def snapshot(self) -> dict:
+        """Pool arenas + exact stream/PRNG state, as plain numpy dicts."""
+        return dict(
+            kind="pooled_forest_sampler",
+            pool=self.pool.snapshot(),
+            stream_kind=self.stream_kind,
+            device_streams=self.device_streams,
+            streams=None if self.streams is None else self.streams.snapshot(),
+            rng=_rng_state(self.rng),
+        )
+
+    @classmethod
+    def restore(cls, state: dict, device="cuda") -> "PooledForestSampler":
+        """From a snapshot of either package; later drains on the same
+        handles and slots equal the source sampler's."""
+        from repro_torch.pool import ForestPool
+
+        if state.get("kind") != "pooled_forest_sampler":
+            raise ValueError(
+                f"not a PooledForestSampler snapshot: {state.get('kind')!r}")
+        s = cls(n_slots=1, streams=state["stream_kind"],
+                device_streams=state["device_streams"], device=device)
+        s.pool = ForestPool.restore(state["pool"], device=device)
+        s.streams = _restore_streams(state["streams"], s.device)
+        s.rng = _rng_restore(state["rng"])
+        return s

@@ -12,6 +12,8 @@ import sys
 import textwrap
 from pathlib import Path
 
+from repro_torch.kernels import _build
+
 _SRC = Path(__file__).resolve().parent.parent / "src"
 
 _FAKE_NVCC = """\
@@ -66,7 +68,6 @@ def test_concurrent_first_use_builds_once(tmp_path):
         assert p.returncode == 0, err
     libs = {out.strip() for out, _err in outs}
     assert len(libs) == 1
-    want = "".join(f"half of {s}; rest of {s}\n"
-                   for s in ("cdf_scan.cu", "forest_delta.cu", "forest_sample.cu"))
+    want = "".join(f"half of {s}; rest of {s}\n" for s in _build._SOURCES)
     assert Path(libs.pop()).read_text() == want
-    assert sorted(log.read_text().split()) == ["compile"] * 3 + ["link"]
+    assert sorted(log.read_text().split()) == ["compile"] * len(_build._SOURCES) + ["link"]

@@ -5,18 +5,30 @@ none. The file imports only the port, so it runs on a machine without JAX:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Distances and descents are held bit-exact / elementwise; scans to
-``SCAN_ATOL`` times the row total (the kernel reassociates the sum).
+Distances, descents and alias drains are held bit-exact / elementwise;
+scans to ``SCAN_ATOL`` times the row total (the kernel reassociates the
+sum); the alias build bit for bit on dyadic rows (exact partial sums in any
+order) and to validity and mass conservation on every row.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import build_forest, forest_from_cdf
+from repro_torch.core.alias import build_alias_parallel, np_sample_alias_f32
+from repro_torch.core.lds import qmc_point_np
 from repro_torch.kernels import ref
+from repro_torch.kernels.alias_build import alias_build_batched
+from repro_torch.kernels.alias_sample import alias_sample_batched
 from repro_torch.kernels.cdf_scan import SCAN_ATOL, cdf_scan
-from repro_torch.kernels.forest_delta import forest_delta
-from repro_torch.kernels.forest_sample import forest_sample
+from repro_torch.kernels.forest_delta import forest_delta, forest_delta_update
+from repro_torch.kernels.forest_sample import (
+    forest_sample,
+    forest_sample_batched,
+    forest_sample_batched_streams,
+)
+from repro_torch.pool import BatchedForest, ForestPool, build_forest_batched
+from repro_torch.serve.sampler import DeviceQmcStreams
 
 pytestmark = pytest.mark.cuda
 
@@ -87,3 +99,141 @@ def test_build_forest_on_card_equals_plain_build(cuda):
     f = forest_from_cdf(fd.cdf.cpu(), 4096, device="cpu")
     for a, b in zip(fd, f):
         assert torch.equal(a.cpu(), b)
+
+
+# ------------------------------------------------------------- pool kernels
+
+
+def test_forest_delta_update_bit_exact(cuda):
+    g = torch.Generator().manual_seed(4)
+    old = torch.sort(torch.rand(70_001, generator=g)).values
+    new = old.clone()
+    new[::7] = torch.nextafter(new[::7], torch.tensor(2.0))
+    new = torch.sort(new).values
+    for m in (1, 4096, 1 << 16):
+        d, ch = forest_delta_update(old.to(cuda), new.to(cuda), m)
+        wd, wch = ref.ref_forest_delta_update(old, new, m)
+        assert torch.equal(d.cpu(), wd) and torch.equal(ch.cpu(), wch)
+        assert torch.equal(d.cpu(), ref.ref_forest_delta(new, m))
+
+
+def _stack(n, m, B, seed):
+    """B stacked forests of width n (one tied row with fallback cells)."""
+    rng = np.random.default_rng(seed)
+    W = (rng.random((B, n)) ** 6 + 1e-9).astype(np.float32)
+    W[-1] = 0.0
+    W[-1, n // 2] = 1.0
+    return build_forest_batched(W, m, device="cpu")
+
+
+@pytest.mark.parametrize("B,n,m", [(1, 8, 8), (5, 64, 32), (3, 300, 300), (6, 4096, 4096)])
+def test_forest_sample_batched_matches_plain(cuda, B, n, m):
+    f = _stack(n, m, B, B * n)
+    fd = BatchedForest(*(t.to(cuda) for t in f))
+    assert bool(f.fallback.any())
+    g = torch.Generator().manual_seed(5)
+    Q = 50_000
+    did = torch.randint(-1, B + 1, (Q,), generator=g, dtype=torch.int32)
+    xi = torch.rand(Q, generator=g)
+    ctr = torch.randint(-2**31, 2**31, (Q,), generator=g, dtype=torch.int32)  # uint32 bits
+    off = torch.randint(0, 2**24, (Q,), generator=g, dtype=torch.int32)
+    want = forest_sample_batched(*f, did, xi)
+    wi, wx = forest_sample_batched_streams(*f, did, ctr, off)
+    for co in (True, False):
+        got = forest_sample_batched(*fd, did.to(cuda), xi.to(cuda), coalesce=co)
+        assert torch.equal(got.cpu(), want), co
+        gi, gx = forest_sample_batched_streams(*fd, did.to(cuda), ctr.to(cuda),
+                                               off.to(cuda), coalesce=co)
+        assert torch.equal(gi.cpu(), wi), co
+        assert torch.equal(gx.cpu().view(torch.int32), wx.view(torch.int32)), co
+        want_pts = qmc_point_np(ctr.numpy().view(np.uint32), off.numpy().view(np.uint32))
+        assert np.array_equal(gx.cpu().numpy().view(np.uint32), want_pts.view(np.uint32))
+
+
+def _dyadic_rows(n, B, seed):
+    """Integer weights in [1, 8) with a power-of-two total: n*p and every
+    partial sum of the tapes is exact in float32, in any order."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(B):
+        c = rng.integers(1, 8, n)
+        extra = (1 << int(np.ceil(np.log2(c.sum())))) - c.sum()
+        np.add.at(c, rng.integers(0, n, extra), 1)
+        rows.append(c)
+    return np.stack(rows).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [4, 32, 1000, 4096, 4097, 65536])
+def test_alias_build_matches_plain(cuda, n):
+    """Bit-exact on dyadic rows (exact partial sums in any order); valid
+    and mass-conserving on every row, including padded zero cells."""
+    B = 8 if n <= 4096 else 3
+    dy = _dyadic_rows(n, B, n)
+    q, a = alias_build_batched(torch.from_numpy(dy).to(cuda))
+    wq, wa = alias_build_batched(torch.from_numpy(dy))
+    assert torch.equal(q.cpu(), wq) and torch.equal(a.cpu(), wa)
+    for b in range(B):
+        t = build_alias_parallel(dy[b].astype(np.float64), device="cpu")
+        assert torch.equal(q[b].cpu(), t.q) and torch.equal(a[b].cpu(), t.alias)
+    rng = np.random.default_rng(n + 1)
+    W = (rng.random((B, n)) ** 6 + 1e-9).astype(np.float32)
+    W[0, n // 2:] = 0.0  # padding
+    W[1] = 1.0           # exactly uniform: identity
+    q, a = (x.cpu().numpy() for x in alias_build_batched(torch.from_numpy(W).to(cuda)))
+    assert np.all((q >= 0) & (q <= 1)) and np.all((a >= 0) & (a < n))
+    assert np.array_equal(a[1], np.arange(n)) and np.all(q[1] == 1.0)
+    for b in range(B):
+        npi = W[b].astype(np.float64) / W[b].sum(dtype=np.float64) * n
+        mass = q[b].astype(np.float64).copy()
+        np.add.at(mass, a[b], 1.0 - q[b].astype(np.float64))
+        # n*p are float32 and sum to n only to a few ulps of n; the cells at
+        # the tapes' ends absorb that residue
+        np.testing.assert_allclose(mass, npi, rtol=2e-4, atol=2e-4 + n * 2.0**-22)
+    assert np.all(q[0, n // 2:] == 0.0)
+    assert not np.any(np.isin(a[0], np.arange(n // 2, n)) & (q[0] < 1.0))
+
+
+@pytest.mark.parametrize("n", [8, 300, 65536])
+def test_alias_sample_matches_f32_oracle(cuda, n):
+    rng = np.random.default_rng(n)
+    B = 4
+    W = (rng.random((B, n)) ** 4 + 1e-6).astype(np.float32)
+    q, a = alias_build_batched(torch.from_numpy(W))
+    Q = 100_000
+    did = rng.integers(-1, B, Q).astype(np.int32)
+    xi = rng.random(Q).astype(np.float32)
+    xi[:3] = [0.0, 1.0, np.nextafter(np.float32(1), np.float32(0))]
+    qn, an = q.numpy(), a.numpy()
+    want = np.zeros(Q, np.int32)
+    for b in range(B):
+        sel = did == b
+        want[sel] = np_sample_alias_f32(qn[b], an[b], xi[sel])
+    for co in (True, False):
+        got = alias_sample_batched(q.to(cuda), a.to(cuda), torch.from_numpy(did).to(cuda),
+                                   torch.from_numpy(xi).to(cuda), coalesce=co)
+        assert np.array_equal(got.cpu().numpy(), want), co
+
+
+def test_pool_on_card_equals_pool_on_cpu(cuda):
+    """A pool admitted on the card: its forest rows equal the plain CPU
+    build from the same CDF bits, and the same pool restored on the CPU
+    drains equal to it (plain versions against the kernels)."""
+    rng = np.random.default_rng(9)
+    tenants = [rng.random(n) ** 3 + 1e-4 for n in (5, 40, 300, 1000, 6, 64, 500)]
+    methods = ["forest"] * 4 + ["alias"] * 3
+    card = ForestPool(device=cuda)
+    hs = card.insert_many(tenants, method=methods)
+    for h in hs[:4]:
+        fd = card.forest_row(h)
+        fc = forest_from_cdf(fd.cdf.cpu(), fd.m, device="cpu")
+        for x, y in zip(fd, fc):
+            assert torch.equal(x.cpu(), y)
+    cpu = ForestPool.restore(card.snapshot(), device="cpu")
+    lanes = [hs[i] for i in rng.integers(0, len(tenants), 20_000)]
+    xi = rng.random(len(lanes)).astype(np.float32)
+    assert np.array_equal(card.sample(lanes, xi), cpu.sample(lanes, xi))
+    streams = [DeviceQmcStreams(64, seed=2, device=d) for d in (cuda, "cpu")]
+    slots = rng.integers(0, 64, len(lanes))
+    a, b = (p.sample_streams(lanes, slots, s) for p, s in zip((card, cpu), streams))
+    assert np.array_equal(a, b)
+    assert torch.equal(streams[0].counters.cpu(), streams[1].counters)
