@@ -28,9 +28,20 @@ the ignored ``build/`` directory), then:
 5. holds each pool kernel against its plain version at 2^22 lanes on the
    largest class's stacks and times it; prints admission times by class,
    the device idle share and the host profile of one drain;
-6. prints the kernels line (launch counts from the runs of steps 3 and 4,
-   each with every count set to 0 just before it), then the result line as
-   the last line of standard output.
+6. drives the serve path: a ``ServeEngine`` (16 slots, 256-token KV budget)
+   over Qwen1.5-0.5B at full width in bfloat16 with seeded random weights,
+   serving 32 model-backed requests (prompts of 8 to 64 tokens, 32 new
+   tokens each, ``inverse_qmc``) and 4 prior-backed ones; every sampler
+   call's tokens are checked against the plain inverse on the same card CDF
+   rows, and those rows against the plain scan; then decode-after-prefill
+   in float32 at full width, a chi-square of 2^20 draws from one decode row,
+   a few steps in ``inverse_rng`` and ``alias`` mode, the launcher
+   (``python -m repro_torch.launch.serve``) once, and the device idle share
+   of one decode step; ``sample_rows`` alone at (16, 151936) and (256,
+   151936), timed beside its plain version and ``torch.searchsorted``;
+7. prints the kernels line (launch counts from the runs of steps 3, 4 and
+   6, each with every count set to 0 just before it), then the result line
+   as the last line of standard output.
 
 Any failed check raises and exits non-zero. Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no result.
@@ -39,6 +50,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -72,6 +84,35 @@ def cuda_ms(fn, reps: int) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def cuda_ms_per_call(fn, n: int, reps: int = 5) -> float:
+    """Time per call of ``fn`` on the card, for microsecond kernels whose
+    single call under CUDA events times the host's launch: the card first
+    spins (``torch.cuda._sleep``) while the host enqueues ``n`` calls, then
+    runs them back to back between one pair of events; the time is divided
+    by ``n`` (median of ``reps``, after one warm-up call). The spin doubles
+    until the host finishes enqueueing before the card reaches the first
+    event, so no host gap lies between the events."""
+    fn()
+    torch.cuda.synchronize()
+    cycles, times = 1 << 24, []
+    while len(times) < reps:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(n):
+            fn()
+        covered = not a.query()
+        b.record()
+        b.synchronize()
+        if covered:
+            times.append(a.elapsed_time(b) / n)
+        else:
+            check(cycles < 1 << 32, "card spin covers the host's enqueue")
+            cycles *= 2
     return statistics.median(times)
 
 
@@ -197,6 +238,31 @@ def stage_times(device, weights: np.ndarray, m: int) -> dict:
     }
 
 
+def device_events(prof):
+    return [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+
+def dev_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0.0)
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn`` from torch.profiler: the summed device
+    time of everything it runs on the card over ``reps`` calls (after one
+    warm-up call), without the host's time between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(dev_us(e) for e in device_events(prof)) / 1e3 / reps
+
+
 def profile_calls(calls) -> None:
     """Device busy share and the heaviest kernels of each ``(name, fn)``
     call, from torch.profiler."""
@@ -209,12 +275,7 @@ def profile_calls(calls) -> None:
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
-        kernels = [e for e in prof.key_averages()
-                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
-
-        def dev_us(e):
-            return getattr(e, "self_device_time_total", None) or getattr(
-                e, "self_cuda_time_total", 0.0)
+        kernels = device_events(prof)
         busy_ms = sum(dev_us(e) for e in kernels) / 1e3
         if busy_ms <= 0:
             print(f"profile {name}: device time not measured by the profiler", flush=True)
@@ -876,8 +937,281 @@ def pool_profile(rec: dict, device, n_draws: int) -> None:
           f"(under cProfile); cumulative: " + ", ".join(parts), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The serve phase: ServeEngine over the dense LM at Qwen1.5-0.5B's widths.
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "qwen1_5_0_5b"  # 24 layers, d_model 1024, 16 heads, vocab 151936
+SERVE_SLOTS = 16
+SERVE_MAX_SEQ = 256
+SERVE_REQUESTS = 32          # model-backed, prompts of 8..64 tokens
+SERVE_PRIORS = 4             # prior-backed requests beside them
+SERVE_MAX_NEW = 32
+SERVE_CHI2_DRAWS = 1 << 20
+SERVE_ROWS_SHAPES = ((16, 151936, 1), (256, 151936, 1))  # B9 timed alone
+DECODE_ATOL = 1e-3           # decode vs prefill logits, float32, full width
+
+
+class SamplerCalls:
+    """Records every TokenSampler call on the decode path: the scan's input
+    and CDF rows (``ops.fused_cdf``), then the uniforms and tokens of the
+    inverse (``ops.sample_rows``), by wrapping the two ``ops`` entry points
+    for the life of a ``with`` block. The wrapped calls still launch the
+    kernels and count."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+
+        self.ops, self.calls = ops, []
+        self.fused, self.rows = ops.fused_cdf, ops.sample_rows
+
+        def fused_cdf(x, softmax=True):
+            out = self.fused(x, softmax=softmax)
+            self.calls.append({"x": x, "cdf": out})
+            return out
+
+        def sample_rows(cdf, xi):
+            out = self.rows(cdf, xi)
+            check(self.calls and self.calls[-1]["cdf"] is cdf, "sample_rows after fused_cdf")
+            self.calls[-1].update(xi=xi, out=out)
+            return out
+
+        ops.fused_cdf, ops.sample_rows = fused_cdf, sample_rows
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.fused_cdf, self.ops.sample_rows = self.fused, self.rows
+
+
+def serve_requests(cfg, n_requests: int, n_priors: int, max_new: int, prompt_lo: int,
+                   prompt_hi: int, seed: int):
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, int(rng.integers(prompt_lo,
+                                                                             prompt_hi + 1))),
+                    max_new=max_new) for i in range(n_requests)]
+    reqs += [Request(rid=1000 + i, prompt=np.zeros(1, np.int64), max_new=max_new,
+                     prior=rng.random(int(rng.integers(100, 5000))) ** 3 + 1e-6)
+             for i in range(n_priors)]
+    return reqs
+
+
+def serve_path(device, cfg, n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+               n_requests=SERVE_REQUESTS, n_priors=SERVE_PRIORS, max_new=SERVE_MAX_NEW,
+               prompt_lo=8, prompt_hi=64) -> dict:
+    """The serving path through the user entry points: a ServeEngine over
+    a seeded random model, model and prior traffic, run to completion, every
+    step synchronized and timed. Returns what the checks need."""
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine, TokenSampler
+
+    t = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    torch.cuda.synchronize()
+    print(f"serve: {cfg.name} {cfg.dtype}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab}, {sum(p.numel() for p in model.parameters())} parameters, "
+          f"seeded init {time.perf_counter() - t:.3f} s", flush=True)
+    eng = ServeEngine(model, cfg, n_slots=n_slots, max_seq=max_seq,
+                      sampler=TokenSampler(mode="inverse_qmc", n_slots=n_slots, device=device),
+                      device=device)
+    reqs = serve_requests(cfg, n_requests, n_priors, max_new, prompt_lo, prompt_hi, 0)
+    for r in reqs:
+        eng.submit(r)
+    decode_s, decode_tokens, wall = 0.0, 0, 0.0
+    with SamplerCalls() as rec:
+        while eng.queue or any(eng.slots):
+            queued = len(eng.queue)
+            before = sum(len(r.out) for r in reqs[:n_requests])
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            wall += dt
+            if len(eng.queue) == queued:  # no admission: a pure decode step
+                decode_s += dt
+                decode_tokens += sum(len(r.out) for r in reqs[:n_requests]) - before
+            check(eng.steps < 10 * max_new * (len(reqs) // n_slots + 2), "engine terminates")
+    check(all(r.done and r.error is None and len(r.out) == max_new for r in reqs),
+          "every request served in full")
+    check(all(0 <= t_ < cfg.vocab for r in reqs[:n_requests] for t_ in r.out), "token range")
+    check(all(0 <= t_ < len(r.prior) for r in reqs[n_requests:] for t_ in r.out),
+          "prior token range")
+    check(eng.prior_sampler.pool.stats()["tenants"] == 0, "prior tenants evicted")
+    toks = sum(len(r.out) for r in reqs)
+    print(f"serve: {len(reqs)} requests ({n_requests} model, {n_priors} prior), {toks} tokens "
+          f"in {eng.steps} steps, {wall:.3f} s (host clock, synchronized steps; "
+          f"{toks / wall:.1f} tokens/s); decode-only steps: {decode_tokens} model tokens "
+          f"in {decode_s:.3f} s, {decode_tokens / max(decode_s, 1e-9):.1f} tokens/s",
+          flush=True)
+    return dict(model=model, engine=eng, reqs=reqs, calls=rec.calls,
+                decode_tokens_per_s=decode_tokens / max(decode_s, 1e-9))
+
+
+def check_sampler_call(c: dict) -> tuple[float, int]:
+    """One recorded sampler call: its CDF rows within SCAN_ATOL of the plain
+    scan of the same input, its tokens equal to the plain inverse on those
+    same rows. Returns (scan error, index error)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cdf_scan import SCAN_ATOL
+
+    check("out" in c, "every fused_cdf call followed by sample_rows")
+    e = float((c["cdf"] - ref.ref_cdf_scan(c["x"])).abs().max())
+    check(e <= SCAN_ATOL, f"sampler CDF rows within SCAN_ATOL ({e})")
+    plain = ref.ref_sample_rows(c["cdf"], c["xi"])
+    check(torch.equal(c["out"], plain), "sampler tokens == plain inverse on the same rows")
+    return e, int((c["out"] - plain).abs().max())
+
+
+def serve_checks(rec: dict, device) -> float:
+    """Every sampler call of the serve run through check_sampler_call.
+    Returns the largest index error."""
+    from repro_torch.kernels.cdf_scan import SCAN_ATOL
+
+    scan_err, idx_err, rows = 0.0, 0, 0
+    for c in rec["calls"]:
+        e, i = check_sampler_call(c)
+        scan_err, idx_err = max(scan_err, e), max(idx_err, i)
+        rows += c["cdf"].shape[0]
+    print(f"serve checks: {len(rec['calls'])} sampler calls, {rows} rows of "
+          f"{rec['calls'][0]['cdf'].shape[1]}: tokens == plain ref_sample_rows on the same "
+          f"card CDF rows; rows vs plain ref_cdf_scan max |err| {scan_err:.3e} "
+          f"(SCAN_ATOL {SCAN_ATOL})", flush=True)
+    return float(idx_err)
+
+
+def serve_model_check(device, cfg) -> None:
+    """Decode after prefill equals prefill of the longer prompt, float32 at
+    full width (matmuls in full float32: TF32 off)."""
+    import dataclasses
+
+    from repro_torch.models import decode_step, init_params, prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = init_params(cfg32, torch.Generator(device=device).manual_seed(1), device)
+    toks = torch.randint(0, cfg.vocab, (2, 33), generator=torch.Generator().manual_seed(2))
+    want, _, _ = prefill(model, cfg32, {"tokens": toks}, 64)
+    _, cache, _ = prefill(model, cfg32, {"tokens": toks[:, :32]}, 64)
+    got, _ = decode_step(model, cfg32, cache, toks[:, 32], torch.tensor([32, 32]))
+    err = float((got - want).abs().max())
+    print(f"serve model check: float32 {cfg.name}, decode after prefill(32) vs prefill(33): "
+          f"max |logit err| {err:.3e} (atol {DECODE_ATOL}; logits max "
+          f"{float(want.abs().max()):.3f})", flush=True)
+    check(err <= DECODE_ATOL, "decode matches prefill at full width")
+
+
+def serve_chi_square(rec: dict, device, gen, n_draws: int) -> None:
+    """2^20 kernel draws from one fixed decode row (the first call's) against
+    its float64 softmax, over 1024 equal-mass bins."""
+    from repro_torch.core.metrics import chi2_statistic, histogram
+    from repro_torch.kernels.cdf_scan import cdf_scan
+    from repro_torch.kernels.sample_tiled import sample_rows
+
+    x = rec["calls"][0]["x"][:1]
+    cdf = cdf_scan(x)
+    idx = sample_rows(cdf, torch.rand(1, n_draws, generator=gen, device=device))
+    p = torch.softmax(x.double(), dim=-1)[0].cpu().numpy()
+    cdf64 = np.concatenate([[0.0], np.cumsum(p)])
+    bins = np.minimum((cdf64[:-1] + cdf64[1:]) * 0.5 * 1024, 1023).astype(np.int64)
+    counts = np.bincount(bins, weights=histogram(idx[0].cpu().numpy(), len(p)), minlength=1024)
+    mass = np.bincount(bins, weights=p, minlength=1024)
+    used = mass > 0
+    chi2 = chi2_statistic(counts[used], mass[used] / mass[used].sum())
+    dof = int(used.sum()) - 1
+    limit = dof + 6.0 * np.sqrt(2.0 * dof)
+    print(f"serve chi-square: {n_draws} draws from one decode row of {len(p)}, "
+          f"{int(used.sum())} equal-mass bins: {chi2:.3f} (dof {dof}, limit {limit:.3f})",
+          flush=True)
+    check(chi2 < limit, "decode row chi-square")
+
+
+def serve_other_modes(rec: dict, device, cfg) -> None:
+    """A few steps in inverse_rng and alias mode on the same model, and the
+    launcher once on the card."""
+    from repro_torch.serve import ServeEngine, TokenSampler
+
+    for mode, n_req, max_new in (("inverse_rng", 4, 4), ("alias", 2, 3)):
+        eng = ServeEngine(rec["model"], cfg, n_slots=2, max_seq=64,
+                          sampler=TokenSampler(mode=mode, n_slots=2, device=device),
+                          device=device)
+        reqs = serve_requests(cfg, n_req, 0, max_new, 8, 16, 5)
+        for r in reqs:
+            eng.submit(r)
+        eng.run(max_steps=100)
+        check(all(r.done and len(r.out) == max_new and all(0 <= t < cfg.vocab for t in r.out)
+                  for r in reqs), f"{mode} engine")
+        print(f"serve {mode}: {n_req} requests x {max_new} tokens in {eng.steps} steps",
+              flush=True)
+    root = Path(__file__).resolve().parent
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen1.5-0.5b",
+         "--requests", "4", "--slots", "2", "--max-new", "4", "--device", device.type],
+        capture_output=True, text=True, timeout=600, cwd=root,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    check(out.returncode == 0 and "served 4/4" in out.stdout,
+          f"launcher on the card: {out.stdout[-400:]} {out.stderr[-2000:]}")
+    print(f"launcher: {out.stdout.strip()}", flush=True)
+
+
+def serve_kernels(device, gen, shapes=SERVE_ROWS_SHAPES) -> dict:
+    """sample_rows alone at decode shapes: elementwise against its plain
+    version, timed beside the plain version and torch.searchsorted, each
+    by cuda_ms_per_call (calls queued behind a spin, run back to back
+    between one pair of CUDA events: a single call under events times the
+    host's launch, not these microsecond kernels).
+    The bound counts the bytes the two-level search must read: nt cutpoints
+    at one 32 B sector each plus one 2 KB tile per draw, plus the uniform in
+    and the index out."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cdf_scan import cdf_scan
+    from repro_torch.kernels.sample_tiled import TILE, sample_rows
+
+    rows = {}
+    for B, V, k in shapes:
+        cdf = cdf_scan(torch.randn((B, V), generator=gen, device=device) * 3.0)
+        xi = torch.rand((B, k), generator=gen, device=device)
+        got, want = sample_rows(cdf, xi), ref.ref_sample_rows(cdf, xi)
+        check(torch.equal(got, want), f"sample_rows == plain at {(B, V, k)}")
+        nt = -(-V // TILE)
+        r = dict(max_abs_err=float((got - want).abs().max()),
+                 ms=cuda_ms_per_call(lambda: sample_rows(cdf, xi), 100),
+                 plain_ms=cuda_ms_per_call(lambda: ref.ref_sample_rows(cdf, xi), 20),
+                 library_ms=cuda_ms_per_call(
+                     lambda: torch.searchsorted(cdf, xi, right=True), 100),
+                 bound=bound_ms(B * k * (nt * 32 + TILE * 4 + 4 + 4)))
+        print(f"sample_rows {(B, V, k)}: elementwise == plain; kernel {r['ms']:.6f} ms, "
+              f"plain {r['plain_ms']:.6f} ms, torch.searchsorted {r['library_ms']:.6f} ms "
+              f"(per call, queued behind a spin, back to back between CUDA events; "
+              f"one call under events: kernel "
+              f"{cuda_ms(lambda: sample_rows(cdf, xi), 50):.4f} ms); "
+              f"device time per call (profiler, 50 calls): "
+              f"kernel {device_ms(lambda: sample_rows(cdf, xi), 50):.4f} ms, plain "
+              f"{device_ms(lambda: ref.ref_sample_rows(cdf, xi), 50):.4f} ms, "
+              f"torch.searchsorted "
+              f"{device_ms(lambda: torch.searchsorted(cdf, xi, right=True), 50):.4f} ms; "
+              f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]})", flush=True)
+        rows.setdefault("sample_rows", r)  # the first shape: the decode path's
+    return rows
+
+
+def serve_profile(rec: dict, device, cfg) -> None:
+    """Device busy share of one decode step with every slot busy."""
+    from repro_torch.serve import ServeEngine, TokenSampler
+
+    eng = ServeEngine(rec["model"], cfg, n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
+                      sampler=TokenSampler(n_slots=SERVE_SLOTS, device=device), device=device)
+    for r in serve_requests(cfg, SERVE_SLOTS, 0, 64, 32, 32, 9):
+        eng.submit(r)
+    eng.step()  # admission and prefills
+    eng.step()
+    profile_calls((("engine decode step (16 busy slots)", eng.step),))
+
+
 def run() -> dict:
     """The whole smoke run on the card; returns the kernels record."""
+    import repro_torch.configs as C
     from repro_torch.configs.paper_workloads import env_map_2d
     from repro_torch.kernels.alias_build import alias_build_batched
     from repro_torch.kernels.alias_sample import alias_sample_batched
@@ -888,6 +1222,7 @@ def run() -> dict:
         forest_sample_batched,
         forest_sample_batched_streams,
     )
+    from repro_torch.kernels.sample_tiled import sample_rows
 
     device = torch.device("cuda")
     weights = env_map_2d(SIDE, SIDE, seed=0).reshape(-1).astype(np.float32)
@@ -907,7 +1242,8 @@ def run() -> dict:
                 "forest_sample_batched": forest_sample_batched,
                 "forest_sample_batched_streams": forest_sample_batched_streams,
                 "alias_build_batched": alias_build_batched,
-                "alias_sample_batched": alias_sample_batched}
+                "alias_sample_batched": alias_sample_batched,
+                "sample_rows": sample_rows}
 
     def counted(path, *args, **kwargs):
         """Drive one path with every count at 0; its result and counts."""
@@ -924,17 +1260,31 @@ def run() -> dict:
     raw.update(pool_kernels(rec, device, gen, POOL_KERNEL_LANES))
     pool_admission_by_class(rec, device)
     pool_profile(rec, device, POOL_DRAWS)
+    del rec
+
+    cfg = C.get(SERVE_ARCH)
+    srec, serve_counts = counted(serve_path, device, cfg)
+    print(f"launches on the serve path: {serve_counts}", flush=True)
+    serve_err = serve_checks(srec, device)
+    serve_model_check(device, cfg)
+    serve_chi_square(srec, device, gen, SERVE_CHI2_DRAWS)
+    serve_other_modes(srec, device, cfg)
+    serve_profile(srec, device, cfg)
+    del srec
+    raw.update(serve_kernels(device, gen))
+    raw["sample_rows"]["max_abs_err"] = max(raw["sample_rows"]["max_abs_err"], serve_err)
 
     sources = {k: (f"{k}.cu", r) for k, r in (
         ("cdf_scan", "src/repro/kernels/cdf_scan.py:78"),
         ("forest_delta", "src/repro/kernels/forest_delta.py:37"),
         ("forest_sample", "src/repro/kernels/forest_sample.py:320"))}
     sources.update(POOL_KERNELS)
+    sources["sample_rows"] = ("sample_tiled.cu", "src/repro/kernels/sample_tiled.py:46")
     kernels = []
     for name, (src, replaces) in sources.items():
         r = raw[name]
         launches = (main_counts if name in ("cdf_scan", "forest_delta", "forest_sample")
-                    else pool_counts)[name]
+                    else serve_counts if name == "sample_rows" else pool_counts)[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",

@@ -4,7 +4,8 @@ discrete sampling, Binder & Keller 2019).
 Module paths mirror ``repro``. The package imports ``torch`` and numpy and
 never ``jax`` or ``repro``: what it needs of the JAX package's pure-numpy
 modules it keeps as its own copies (``robust.errors``, ``robust.validate``,
-``core.alias``'s host builds, ``core.lds``, ``core.metrics``).
+``core.alias``'s host builds, ``core.lds``, ``core.metrics``,
+``models.config`` and the config registry).
 
 Layers on the card so far:
 
@@ -18,7 +19,14 @@ Layers on the card so far:
   ``forest_sample_batched``, ``forest_sample_batched_streams``,
   ``alias_build_batched`` and ``alias_sample_batched`` (and the batched
   builds' ``cdf_scan`` and ``forest_delta``). ``interop`` restores a
-  JAX pool or sampler snapshot into the port.
+  JAX pool or sampler snapshot into the port;
+* model-backed serving: the dense LM (``models``: ``init_params``,
+  ``prefill``, ``decode_step``; ``configs`` holds the dense
+  architectures), ``serve.sampler.TokenSampler`` and
+  ``serve.engine.ServeEngine``, on the kernels ``cdf_scan`` (softmax
+  mode) and ``sample_rows``; ``interop.params_from_jax`` and
+  ``cache_from_jax`` carry JAX weights and caches across, and
+  ``ServeEngine.restore`` takes a JAX engine snapshot.
 
 Device policy (see :mod:`repro_torch.device`):
 

@@ -27,7 +27,8 @@ import torch
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 _SOURCES = ("cdf_scan.cu", "forest_delta.cu", "forest_sample.cu",
-            "forest_sample_batched.cu", "alias_build.cu", "alias_sample.cu")
+            "forest_sample_batched.cu", "alias_build.cu", "alias_sample.cu",
+            "sample_tiled.cu")
 _HEADERS = ("common.cuh",)
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -47,6 +48,7 @@ _SIGNATURES = {
     "rt_alias_build": (_P, _P, _P, _P, _I, _I, _P),
     "rt_alias_sample_batched": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "rt_alias_smem_max_n": (),
+    "rt_sample_rows": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 

@@ -9,9 +9,18 @@ of :func:`repro_torch.core.cdf.chunked_cumsum` on the main path.
 Tolerance: the kernel reassociates the sum (tile tree plus carry chain), so
 it agrees with the plain version and with the JAX kernel to within
 ``SCAN_ATOL`` times the row total, not bit for bit. For non-negative terms
-any summation order errs by at most (depth) * 2^-24 * total; the depth of
-either order at rows up to ~50k is below ~100 additions, and the JAX
-suite holds its own kernel to its reference with the same 3e-6.
+a prefix summed in any order errs by at most (additions on its path) *
+2^-24 * total. The kernel's path is at most 12 additions inside a 1024-wide
+tile (4 sequential items, 5 warp-shuffle levels, 3 over the 8 warps) plus
+one carry addition per earlier tile: 62 at V = 50257, 160 at V = 151936
+(the Qwen vocabulary, the decode path's rows). The worst case, 160 * 2^-24
+= 9.5e-6 at 151936, needs every rounding to err the same way; rounding to
+nearest errs both ways, so a long carry chain's error grows like the
+square root of its length, about 13 * 2^-24 = 7.5e-7 there. The JAX suite
+holds its own kernel to its reference with the same 3e-6; at V = 151936
+``tests/test_torch_sample_rows.py`` holds the plain scan to the JAX
+reference, and ``chip_smoke.py``'s serve phase holds every card CDF row of
+the decode path to the plain scan, both within ``SCAN_ATOL``.
 """
 from __future__ import annotations
 

@@ -24,11 +24,17 @@ from .forest_sample import forest_sample_batched as _forest_sample_batched
 from .forest_sample import (
     forest_sample_batched_streams as _forest_sample_batched_streams,
 )
+from .sample_tiled import sample_rows as _sample_rows
 
 
 def fused_cdf(x: torch.Tensor, softmax: bool = True) -> torch.Tensor:
     """(B, V) logits/weights -> (B, V) inclusive CDF rows."""
     return cdf_scan(x, softmax=softmax)
+
+
+def sample_rows(cdf_rows: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+    """Per-row inverse CDF: (B, V) x (B, k) -> (B, k) int32 indices."""
+    return _sample_rows(cdf_rows, xi)
 
 
 def forest_sample(forest: RadixForest, xi: torch.Tensor) -> torch.Tensor:

@@ -205,3 +205,30 @@ def ref_alias_sample_batched(q, alias, dist_id, xi) -> torch.Tensor:
     cl = cell.long()
     out = torch.where(frac < q[did, cl], cell, alias[did, cl])
     return torch.where(valid, out, torch.zeros_like(out)).to(torch.int32)
+
+
+# The tile of the JAX kernel's default and of csrc/sample_tiled.cu
+# (RT_SAMPLE_TILE): the plain version is held to that kernel at this tile.
+SAMPLE_TILE = 512
+
+
+def ref_sample_rows(cdf_rows: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
+    """(B, V) inclusive CDF rows, (B, k) uniforms -> (B, k) int32: the
+    two-level tiled count of the JAX package's ``_sample_kernel``. Rows are
+    padded to whole tiles with 2.0 (never ``<= xi``); ``t`` counts the tile
+    cutpoints (each tile's last entry) ``<= xi``, clipped to the last tile;
+    ``off`` counts that tile's entries ``<= xi``, clipped to ``tile - 1``;
+    the index is ``min(t * tile + off, V - 1)``. On monotone rows this is
+    ``searchsorted(row, xi, right)`` clipped to ``V - 1``; on rows with a
+    dip only the count is defined, so this is written as the count."""
+    B, V = cdf_rows.shape
+    tile = SAMPLE_TILE
+    nt = -(-V // tile)
+    padded = torch.nn.functional.pad(cdf_rows.to(torch.float32), (0, nt * tile - V), value=2.0)
+    tiles = padded.view(B, nt, tile)
+    x = xi.to(torch.float32)
+    t = (tiles[:, None, :, -1] <= x[:, :, None]).sum(-1)               # (B, k)
+    t = torch.clamp(t, max=nt - 1)
+    seg = tiles[torch.arange(B, device=x.device)[:, None], t]            # (B, k, tile)
+    off = torch.clamp((seg <= x[:, :, None]).sum(-1), max=tile - 1)
+    return torch.clamp(t * tile + off, max=V - 1).to(torch.int32)

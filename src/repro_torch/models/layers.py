@@ -1,0 +1,161 @@
+"""Transformer layers of the dense LM: RMSNorm, RoPE, GQA attention with a
+per-row KV cache, SwiGLU MLP.
+
+Each layer keeps the arithmetic of the JAX package's ``models/layers.py``:
+RMSNorm in float32 and cast back, half-split (not interleaved) RoPE in
+float32, attention logits cast to float32 and divided by ``sqrt(hd)``,
+``-1e30`` masking and a float32 softmax, cast back before the value product.
+Projections and biases are stored in the model's dtype (the JAX package
+keeps float32 masters and casts them at use: the same values); norm scales
+stay float32. Weights are stored as ``(out, in)`` for ``F.linear``;
+``repro_torch.interop.params_from_jax`` transposes the JAX layout.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .config import ModelConfig
+
+NEG_INF = -1e30  # the mask value of the JAX package
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
+
+
+def _weight(*shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(*shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, eps: float, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(d, dtype=torch.float32, device=device),
+                                  requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        x = x.to(torch.float32)
+        var = torch.mean(x * x, dim=-1, keepdim=True)
+        return ((x * torch.rsqrt(var + self.eps)) * self.scale).to(dt)
+
+
+def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x (B, S, H, hd), positions (B, S) -> x rotated, half-split: the first
+    and second halves of ``hd`` are the two coordinates of each pair."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    ang = positions[..., None].to(torch.float32) * freqs          # (B, S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def causal_keep(Sq: int, Sk: int, device=None) -> torch.Tensor:
+    """(Sq, Sk) mask of the keys each query position may attend to."""
+    return (torch.arange(Sk, device=device)[None, :]
+            <= torch.arange(Sq, device=device)[:, None])
+
+
+def _sdpa(q, k, v, keep: torch.Tensor | None = None):
+    """Materialized attention. q (B, Sq, H, hd), k/v (B, Sk, KV, hd); GQA
+    by head-group reshape (query head ``h`` reads key head ``h // G``).
+    ``keep`` broadcasts against the (B, KV, G, Sq, Sk) logits; masked
+    logits are set to ``-1e30`` before the float32 softmax."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, hd).permute(0, 2, 3, 1, 4)       # (B, KV, G, Sq, hd)
+    kt = k.permute(0, 2, 3, 1)[:, :, None]                       # (B, KV, 1, hd, Sk)
+    logits = torch.matmul(qg, kt).to(torch.float32) / math.sqrt(hd)
+    if keep is not None:
+        logits = torch.where(keep, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.matmul(w, v.permute(0, 2, 1, 3)[:, :, None])      # (B, KV, G, Sq, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+
+
+class Attention(nn.Module):
+    """Self-attention with optional QKV bias and qk-norm."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        dt = _dtype(cfg)
+        self.cfg = cfg
+        self.wq = _weight(H * hd, D, dtype=dt, device=device)
+        self.wk = _weight(KV * hd, D, dtype=dt, device=device)
+        self.wv = _weight(KV * hd, D, dtype=dt, device=device)
+        self.wo = _weight(D, H * hd, dtype=dt, device=device)
+        if cfg.qkv_bias:
+            self.bq = nn.Parameter(torch.zeros(H * hd, dtype=dt, device=device),
+                                   requires_grad=False)
+            self.bk = nn.Parameter(torch.zeros(KV * hd, dtype=dt, device=device),
+                                   requires_grad=False)
+            self.bv = nn.Parameter(torch.zeros(KV * hd, dtype=dt, device=device),
+                                   requires_grad=False)
+        if cfg.qk_norm:
+            self.q_norm = RMSNorm(hd, cfg.norm_eps, device)
+            self.k_norm = RMSNorm(hd, cfg.norm_eps, device)
+
+    def qkv(self, x: torch.Tensor, positions: torch.Tensor):
+        """x (B, S, D), positions (B, S) -> roped q (B, S, H, hd), roped k
+        and v (B, S, KV, hd)."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        q = F.linear(x, self.wq)
+        k = F.linear(x, self.wk)
+        v = F.linear(x, self.wv)
+        if cfg.qkv_bias:
+            q, k, v = q + self.bq, k + self.bk, v + self.bv
+        q = q.view(B, S, cfg.n_heads, cfg.hd)
+        k = k.view(B, S, cfg.n_kv_heads, cfg.hd)
+        v = v.view(B, S, cfg.n_kv_heads, cfg.hd)
+        if cfg.qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
+        return (apply_rope(q, positions, cfg.rope_theta),
+                apply_rope(k, positions, cfg.rope_theta), v)
+
+    def out(self, o: torch.Tensor) -> torch.Tensor:
+        """(B, S, H, hd) attention output -> (B, S, D)."""
+        return F.linear(o.flatten(2), self.wo)
+
+    def decode(self, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+               pos: torch.Tensor) -> torch.Tensor:
+        """One-token decode with per-row positions: x (B, 1, D); ck/cv
+        (B, S, KV, hd) cache views, written IN PLACE at ``(row, pos[row])``;
+        pos (B,) int64. Row ``b`` attends to keys ``0..pos[b]``."""
+        B = x.shape[0]
+        q, k, v = self.qkv(x, pos[:, None])
+        rows = torch.arange(B, device=x.device)
+        ck[rows, pos] = k[:, 0].to(ck.dtype)
+        cv[rows, pos] = v[:, 0].to(cv.dtype)
+        keep = torch.arange(ck.shape[1], device=x.device)[None] <= pos[:, None]
+        return self.out(_sdpa(q, ck, cv, keep[:, None, None, None, :]))
+
+
+class MLP(nn.Module):
+    """SwiGLU: ``wo(silu(wg x) * wi x)``."""
+
+    def __init__(self, d: int, ff: int, dtype, device=None):
+        super().__init__()
+        self.wi = _weight(ff, d, dtype=dtype, device=device)
+        self.wg = _weight(ff, d, dtype=dtype, device=device)
+        self.wo = _weight(d, ff, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.linear(x, self.wi)
+        g = F.linear(x, self.wg)
+        return F.linear(F.silu(g) * h, self.wo)
+

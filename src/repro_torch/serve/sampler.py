@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.alias import build_alias, sample_alias
 from repro_torch.core.cdf import normalize_weights, updated_weights
 from repro_torch.core.forest import build_forest
 from repro_torch.core.lds import (
@@ -27,6 +28,7 @@ from repro_torch.core.lds import (
 )
 from repro_torch.core.sample import sample_forest
 from repro_torch.device import resolve, to_device
+from repro_torch.kernels import ops
 
 
 class QmcStreams:
@@ -337,6 +339,73 @@ class PooledForestSampler:
         s = cls(n_slots=1, streams=state["stream_kind"],
                 device_streams=state["device_streams"], device=device)
         s.pool = ForestPool.restore(state["pool"], device=device)
+        s.streams = _restore_streams(state["streams"], s.device)
+        s.rng = _rng_restore(state["rng"])
+        return s
+
+
+class TokenSampler:
+    """Decode-token sampler over per-slot uniforms. Modes:
+
+    * ``inverse_qmc``: softmax -> CDF rows (``ops.fused_cdf``, kernel
+      ``cdf_scan``) and the per-row tiled inverse (``ops.sample_rows``,
+      kernel ``sample_rows``), at the slots' :class:`QmcStreams` points;
+    * ``inverse_rng``: the same mapping at uniforms from one seeded numpy
+      generator (the Monte Carlo baseline);
+    * ``alias``: a per-row host Vose build on the softmax and one
+      ``sample_alias`` draw (the paper's antagonist, serial by design).
+
+    Every mode draws through :meth:`uniforms`, so mode comparisons contrast
+    mappings, not randomness. ``temperature`` divides the logits in their
+    own dtype. ``use_pallas`` is accepted so that a JAX snapshot or call
+    restores as is, and ignored: the kernel wrappers choose by device."""
+
+    def __init__(self, mode: str = "inverse_qmc", n_slots: int = 64,
+                 temperature: float = 1.0, seed: int = 0, use_pallas: bool = True,
+                 device="cuda"):
+        if mode not in ("inverse_qmc", "inverse_rng", "alias"):
+            raise ValueError(f"unknown TokenSampler mode {mode!r}")
+        self.mode = mode
+        self.temperature = temperature
+        self.device = resolve(device)
+        self.streams = QmcStreams(n_slots, seed)
+        self.rng = np.random.default_rng(seed)
+        self.use_pallas = use_pallas
+
+    def uniforms(self, slots: np.ndarray) -> np.ndarray:
+        if self.mode == "inverse_qmc":
+            return self.streams.next(slots)
+        return self.rng.random(len(slots)).astype(np.float32)
+
+    def sample(self, logits, slots: np.ndarray) -> np.ndarray:
+        """logits (B, V) -> token ids (B,) int32, one per slot."""
+        logits = to_device(logits, self.device) / self.temperature
+        xi = self.uniforms(slots)
+        if self.mode == "alias":
+            p = torch.softmax(logits, dim=-1).cpu().double().numpy()
+            out = np.empty(len(slots), np.int32)
+            for i in range(len(slots)):  # serial build per row: the point
+                t = build_alias(p[i], device="cpu")
+                out[i] = int(sample_alias(t, torch.tensor([xi[i]]))[0])
+            return out
+        cdf = ops.fused_cdf(logits, softmax=True)
+        idx = ops.sample_rows(cdf, to_device(xi, self.device)[:, None])
+        return idx[:, 0].cpu().numpy()
+
+    def snapshot(self) -> dict:
+        return dict(
+            kind="token_sampler", mode=self.mode,
+            temperature=self.temperature, use_pallas=self.use_pallas,
+            streams=self.streams.snapshot(), rng=_rng_state(self.rng),
+        )
+
+    @classmethod
+    def restore(cls, state: dict, device="cuda") -> "TokenSampler":
+        """From a snapshot of either package."""
+        if state.get("kind") != "token_sampler":
+            raise ValueError(f"not a TokenSampler snapshot: {state.get('kind')!r}")
+        s = cls(mode=state["mode"], n_slots=1, temperature=state["temperature"],
+                use_pallas=state["use_pallas"], device=device)
         s.streams = _restore_streams(state["streams"], s.device)
         s.rng = _rng_restore(state["rng"])
         return s

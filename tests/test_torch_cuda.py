@@ -8,8 +8,11 @@ none. The file imports only the port, so it runs on a machine without JAX:
 Distances, descents and alias drains are held bit-exact / elementwise;
 scans to ``SCAN_ATOL`` times the row total (the kernel reassociates the
 sum); the alias build bit for bit on dyadic rows (exact partial sums in any
-order) and to validity and mass conservation on every row.
+order) and to validity and mass conservation on every row; the per-row
+inverse-CDF search elementwise on monotone and dipped rows.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -27,10 +30,12 @@ from repro_torch.kernels.forest_sample import (
     forest_sample_batched,
     forest_sample_batched_streams,
 )
+from repro_torch.kernels.sample_tiled import sample_rows
 from repro_torch.pool import BatchedForest, ForestPool, build_forest_batched
 from repro_torch.serve.sampler import DeviceQmcStreams
 
 pytestmark = pytest.mark.cuda
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
@@ -237,3 +242,77 @@ def test_pool_on_card_equals_pool_on_cpu(cuda):
     a, b = (p.sample_streams(lanes, slots, s) for p, s in zip((card, cpu), streams))
     assert np.array_equal(a, b)
     assert torch.equal(streams[0].counters.cpu(), streams[1].counters)
+
+
+def _cdf_rows(B, V, seed, cuda):
+    g = torch.Generator().manual_seed(seed)
+    return cdf_scan((torch.randn(B, V, generator=g) * 3).to(cuda))
+
+
+@pytest.mark.parametrize("B,V,k", [(1, 1, 1), (3, 511, 4), (16, 151936, 1),
+                                   (4, 50257, 3), (256, 1024, 2)])
+def test_sample_rows_matches_plain(cuda, B, V, k):
+    cdf = _cdf_rows(B, V, V, cuda)
+    g = torch.Generator().manual_seed(k)
+    xi = torch.rand(B, k, generator=g).to(cuda)
+    xi[0, 0] = 0.0
+    if k > 1:
+        xi[:, 1] = cdf[:, -1]                          # the last entry
+        xi[-1, -1] = float(np.float32(1.0 - 2.0 ** -24))
+    before = sample_rows.launches
+    got = sample_rows(cdf, xi)
+    torch.cuda.synchronize()
+    assert sample_rows.launches == before + 1
+    assert torch.equal(got.cpu(), ref.ref_sample_rows(cdf.cpu(), xi.cpu()))
+    # on these monotone rows: searchsorted (right), clipped
+    want = torch.clamp(torch.searchsorted(cdf, xi, right=True), max=V - 1)
+    assert torch.equal(got.long(), want)
+
+
+def test_sample_rows_matches_plain_on_dipped_rows(cuda):
+    """Rows with one-ulp dips at tile cutpoints and noisy rows: only the
+    count is defined there, and kernel and plain version count alike."""
+    rng = np.random.default_rng(7)
+    V = 5000
+    base = np.cumsum(rng.random(V)).astype(np.float32)
+    base /= base[-1]
+    dip = base.copy()
+    for j in range(511, V - 1, 512):
+        dip[j] = np.nextafter(dip[j + 1], np.float32(2.0))
+    noisy = (base + rng.normal(0.0, 1e-3, V)).astype(np.float32)
+    rows = torch.tensor(np.stack([dip, noisy, base[::-1].copy()]))
+    xi = torch.tensor(np.stack([r[rng.integers(0, V, 8)] for r in rows.numpy()]))
+    got = sample_rows(rows.to(cuda), xi.to(cuda))
+    assert torch.equal(got.cpu(), ref.ref_sample_rows(rows, xi))
+
+
+def test_engine_steps_on_card(cuda):
+    """A reduced Qwen1.5 engine on the card: every sampler call's tokens
+    equal the plain inverse on the same card CDF rows, and those rows are
+    within SCAN_ATOL of the plain scan (chip_smoke's recorder and check)."""
+    import dataclasses
+    import importlib.util
+
+    import repro_torch.configs as C
+    from repro_torch.models import init_params
+    from repro_torch.serve import Request, ServeEngine, TokenSampler
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = dataclasses.replace(C.get_reduced("qwen1_5_0_5b"), dtype="bfloat16")
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    eng = ServeEngine(model, cfg, n_slots=4, max_seq=64,
+                      sampler=TokenSampler(n_slots=4, device=cuda), device=cuda)
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, 6), max_new=3) for i in range(5)]
+    for r in reqs:
+        eng.submit(r)
+    before = sample_rows.launches
+    with smoke.SamplerCalls() as rec:
+        eng.run(max_steps=50)
+    torch.cuda.synchronize()
+    assert all(r.done and len(r.out) == 3 for r in reqs)
+    assert sample_rows.launches - before == len(rec.calls) > 0
+    for c in rec.calls:
+        smoke.check_sampler_call(c)
