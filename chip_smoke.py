@@ -39,9 +39,21 @@ the ignored ``build/`` directory), then:
    (``python -m repro_torch.launch.serve``) once, and the device idle share
    of one decode step; ``sample_rows`` alone at (16, 151936) and (256,
    151936), timed beside its plain version and ``torch.searchsorted``;
-7. prints the kernels line (launch counts from the runs of steps 3, 4 and
-   6, each with every count set to 0 just before it), then the result line
-   as the last line of standard output.
+7. the train phase: ``flash_attention`` (B10) against its plain version at
+   the eval shape (2, 2048, 16 heads, hd 64, bf16, causal), Qwen3-4B's GQA
+   (1, 1024, 32/8 heads, hd 128) and a ragged non-causal float32 case,
+   timed beside the plain version and ``scaled_dot_product_attention``;
+   the eval path, ``loss_fn`` without gradients over Qwen1.5-0.5B at full
+   width in bf16 on a 2 x 2048 ``make_batch`` batch, flash against einsum
+   (B10 launched once per layer), and the device profile of one forward;
+   the train path, the ``Trainer`` at the same widths (float32 masters,
+   bf16 compute, global batch 8 x 256) for 4 steps, then a run killed at
+   step 2 and resumed, bitwise equal under deterministic algorithms; the
+   mixture's forest kernels counted; step time, the profile of one step,
+   and the training launcher once in a subprocess;
+8. prints the kernels line (launch counts from the runs of steps 3, 4, 6
+   and 7's eval path, each with every count set to 0 just before it), then
+   the result line as the last line of standard output.
 
 Any failed check raises and exits non-zero. Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no result.
@@ -116,9 +128,10 @@ def cuda_ms_per_call(fn, n: int, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float = 0.0,
+             ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1209,6 +1222,212 @@ def serve_profile(rec: dict, device, cfg) -> None:
     profile_calls((("engine decode step (16 busy slots)", eng.step),))
 
 
+# ---------------------------------------------------------------------------
+# The train phase: kernel B10, the eval forward and the Trainer at
+# Qwen1.5-0.5B's widths.
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen1_5_0_5b"
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
+# (B, S, H, KV, hd, dtype, causal): the eval shape, Qwen3-4B's GQA, ragged
+FLASH_SHAPES = ((2, 2048, 16, 16, 64, torch.bfloat16, True),
+                (1, 1024, 32, 8, 128, torch.bfloat16, True),
+                (1, 1000, 4, 2, 64, torch.float32, False))
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the JAX suite's
+EVAL_B, EVAL_S = 2, 2048
+EVAL_NLL_ATOL = 1e-2        # flash vs einsum nll, bf16 at full width
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 256, 4
+MIXTURE = (0.5, 0.25, 0.125, 0.125)
+
+
+def flash_kernels(device, gen) -> dict:
+    """B10 against its plain version at the three FLASH_SHAPES, timed
+    (``cuda_ms_per_call``) beside the plain version and
+    ``scaled_dot_product_attention`` on the same tensors (K/V expanded for
+    GQA and all three laid out (B, heads, S, hd) before timing). The bound:
+    the larger of q/k/v/o bytes over 3.35 TB/s and the unmasked
+    score-and-value FLOPs (``2*2*B*H*hd`` per visible (query, key) pair)
+    over the dense tensor-core peak of the inputs' type."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    rows = {}
+    for B, S, H, KV, hd, dt, causal in FLASH_SHAPES:
+        q, k, v = (torch.randn(shape, generator=gen, device=device).to(dt)
+                   for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+        got, want = flash_attention(q, k, v, causal), ref.ref_flash_attention(q, k, v, causal)
+        tol = FLASH_TOL[dt]
+        err = float((got.float() - want.float()).abs().max())
+        check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+              f"flash_attention within {tol} of plain at {(B, S, H, KV, hd, dt, causal)}")
+        qt, kt, vt = (t.repeat_interleave(H // t.shape[2], dim=2).transpose(1, 2).contiguous()
+                      for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+        lib_err = float((sdpa().transpose(1, 2).float() - want.float()).abs().max())
+        pairs = S * (S + 1) // 2 if causal else S * S
+        flops = 2 * 2 * B * H * pairs * hd
+        peak = BF16_OPS_PER_S if dt == torch.bfloat16 else F32_OPS_PER_S
+        r = dict(max_abs_err=err,
+                 ms=cuda_ms_per_call(lambda: flash_attention(q, k, v, causal), 10),
+                 plain_ms=cuda_ms_per_call(lambda: ref.ref_flash_attention(q, k, v, causal), 3),
+                 library_ms=cuda_ms_per_call(sdpa, 20),
+                 bound=bound_ms(nbytes(q, k, v, got), flops, peak))
+        print(f"flash_attention {(B, S, H, KV, hd)} {str(dt)[6:]} causal={causal}: max |err| "
+              f"vs plain {err:.3e} (tol {tol}); SDPA vs plain {lib_err:.3e}; kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
+              f"(per call, queued behind a spin); bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]}; {flops / 1e9:.2f} GFLOP, {nbytes(q, k, v, got) / 1e6:.1f} MB)",
+              flush=True)
+        rows.setdefault("flash_attention", r)  # the first shape: the eval path's
+    return rows
+
+
+def eval_path(device, cfg, B=EVAL_B, S=EVAL_S) -> dict:
+    """``loss_fn`` without gradients at full width in bf16 (seeded random
+    weights) on one ``make_batch`` batch, with ``attn_impl="flash"`` (twice:
+    a warm-up and a timed call) and ``"einsum"``."""
+    import dataclasses
+
+    from repro_torch.data import MixtureSampler, make_batch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import init_params, loss_fn
+
+    model = init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    batch = make_batch(cfg, 0, B, S, mixture=MixtureSampler(MIXTURE, device=device))
+    flash = dataclasses.replace(cfg, attn_impl="flash")
+    with torch.no_grad():
+        loss_fn(model, flash, batch)
+        check(flash_attention.launches == cfg.n_layers, "B10 once per layer of a forward")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lf, mf = loss_fn(model, flash, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        le, me = loss_fn(model, cfg, batch)
+    nf, ne = float(mf["nll"]), float(me["nll"])
+    check(math.isfinite(nf) and math.isfinite(ne), "finite eval nll")
+    print(f"eval: {cfg.name} bf16, loss_fn without gradients on {B} x {S} tokens: nll flash "
+          f"{nf:.6f}, einsum {ne:.6f}, |diff| {abs(nf - ne):.3e} (bound {EVAL_NLL_ATOL}); "
+          f"flash eval {dt * 1e3:.3f} ms, {B * S / dt:.1f} tokens/s (host clock, synchronized); "
+          f"B10 launches {flash_attention.launches} ({cfg.n_layers} a forward)", flush=True)
+    check(abs(nf - ne) <= EVAL_NLL_ATOL, "flash and einsum eval nll agree")
+    return dict(model=model, batch=batch, cfg=flash)
+
+
+def eval_profile(rec: dict) -> None:
+    """Device busy share and launches of one flash eval forward."""
+    from repro_torch.models import forward
+
+    def fwd():
+        with torch.no_grad():
+            forward(rec["model"], rec["cfg"], rec["batch"])
+
+    profile_calls(((f"eval forward (flash, {EVAL_B} x {EVAL_S})", fwd),))
+
+
+def train_path(device, cfg, ckpt_root: Path, B=TRAIN_B, S=TRAIN_S, steps=TRAIN_STEPS) -> dict:
+    """The Trainer at full width (float32 masters, compute in cfg.dtype,
+    einsum attention): ``steps`` steps with a checkpoint at the end; then a
+    second run killed at step 2 (after its step-2 checkpoint) and resumed
+    to the end. Both runs under ``torch.use_deterministic_algorithms``:
+    the resumed run's parameters and last loss must equal the first run's
+    bit for bit."""
+    import shutil
+
+    from repro_torch.train import TrainConfig, Trainer
+
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    def tc(name, every):
+        return TrainConfig(steps=steps, global_batch=B, seq_len=S, ckpt_dir=str(ckpt_root / name),
+                           ckpt_every=every, keep=1, log_every=1)
+
+    logs = []
+    first = Trainer(cfg, tc("a", 1000), log_fn=logs.append, device=device)
+    crashy = Trainer(cfg, tc("b", 2), fail_at_step=2, log_fn=logs.append, device=device)
+    torch.use_deterministic_algorithms(True)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        a = first.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        try:
+            crashy.run()
+            check(False, "the injected failure fires")
+        except RuntimeError as e:
+            check("injected failure at step 2" in str(e), f"injected failure: {e}")
+        b = Trainer(cfg, tc("b", 2), log_fn=logs.append, device=device).run()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    losses = [m["loss"] for m in a["metrics"]]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses), "finite train losses")
+    check(losses[-1] < losses[0], f"train loss falls: {losses}")
+    check(any("resumed from step 2" in line for line in logs), "resumed from the step-2 checkpoint")
+    same = all(torch.equal(p, q) for p, q in zip(a["params"].parameters(),
+                                                 b["params"].parameters()))
+    check(same and b["final_loss"] == a["final_loss"],
+          f"resumed run bitwise equal: loss {b['final_loss']!r} vs {a['final_loss']!r}")
+    n_params = sum(p.numel() for p in a["params"].parameters())
+    print(f"train: {cfg.name}, {n_params} parameters (float32 masters, {cfg.dtype} compute, "
+          f"einsum attention), global batch {B} x {S}, {steps} steps: losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)}; run with init and one checkpoint "
+          f"{wall:.3f} s; peak memory {peak / 2**30:.3f} GiB; killed at step 2 and resumed: "
+          f"final loss {b['final_loss']!r} == {a['final_loss']!r} and every parameter "
+          f"bitwise equal (torch.use_deterministic_algorithms(True))", flush=True)
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    return dict(trainer=first, out=a)
+
+
+def train_timing(rec: dict, cfg, device, B=TRAIN_B, S=TRAIN_S) -> None:
+    """ms per train step (host clock around synchronized steps, median of
+    3, after the run's own steps) and the device busy share of one more."""
+    from repro_torch.data import make_batch
+
+    tr, out = rec["trainer"], rec["out"]
+    params, opt = out["params"], out["opt"]
+    times = []
+    for step in range(TRAIN_STEPS, TRAIN_STEPS + 3):
+        batch = make_batch(cfg, step, B, S, mixture=tr.mixture)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, m = tr.step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    ms = statistics.median(times)
+    print(f"train step: {ms:.3f} ms (median of 3, host clock, synchronized), "
+          f"{B * S / ms * 1e3:.1f} tokens/s", flush=True)
+    batch = make_batch(cfg, TRAIN_STEPS + 3, B, S, mixture=tr.mixture)
+    profile_calls((("train step (8 x 256, float32 masters)",
+                    lambda: tr.step_fn(params, opt, batch)),))
+
+
+def train_launcher(ckpt_root: Path) -> None:
+    """The training launcher once on the card, in a subprocess."""
+    import shutil
+
+    root = Path(__file__).resolve().parent
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "qwen1.5-0.5b",
+           "--preset", "full", "--steps", str(TRAIN_STEPS), "--batch", str(TRAIN_B),
+           "--seq", str(TRAIN_S), "--device", "cuda", "--ckpt", str(ckpt_root)]
+    t = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=root,
+                         env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    check(out.returncode == 0 and "done: final loss" in out.stdout,
+          f"train launcher on the card: {out.stdout[-400:]} {out.stderr[-2000:]}")
+    print(f"train launcher ({' '.join(cmd[2:])}): {out.stdout.strip().splitlines()[-1]} "
+          f"in {time.perf_counter() - t:.1f} s", flush=True)
+
+
 def run() -> dict:
     """The whole smoke run on the card; returns the kernels record."""
     import repro_torch.configs as C
@@ -1216,6 +1435,7 @@ def run() -> dict:
     from repro_torch.kernels.alias_build import alias_build_batched
     from repro_torch.kernels.alias_sample import alias_sample_batched
     from repro_torch.kernels.cdf_scan import cdf_scan
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.forest_delta import forest_delta, forest_delta_update
     from repro_torch.kernels.forest_sample import (
         forest_sample,
@@ -1243,7 +1463,8 @@ def run() -> dict:
                 "forest_sample_batched_streams": forest_sample_batched_streams,
                 "alias_build_batched": alias_build_batched,
                 "alias_sample_batched": alias_sample_batched,
-                "sample_rows": sample_rows}
+                "sample_rows": sample_rows,
+                "flash_attention": flash_attention}
 
     def counted(path, *args, **kwargs):
         """Drive one path with every count at 0; its result and counts."""
@@ -1274,17 +1495,36 @@ def run() -> dict:
     raw.update(serve_kernels(device, gen))
     raw["sample_rows"]["max_abs_err"] = max(raw["sample_rows"]["max_abs_err"], serve_err)
 
+    raw.update(flash_kernels(device, gen))
+    tcfg = C.get(TRAIN_ARCH)
+    erec, eval_counts = counted(eval_path, device, tcfg)
+    print(f"launches on the eval path: {eval_counts}", flush=True)
+    eval_profile(erec)
+    del erec
+    ckpt_root = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    trec, train_counts = counted(train_path, device, tcfg, ckpt_root)
+    print(f"launches on the train path: {train_counts}", flush=True)
+    for name in ("cdf_scan", "forest_delta", "forest_sample"):
+        check(train_counts[name] > 0, f"{name} launched by the trainer's mixture")
+    check(train_counts["flash_attention"] == 0, "training runs einsum attention")
+    train_timing(trec, tcfg, device)
+    del trec
+    train_launcher(ckpt_root)
+
     sources = {k: (f"{k}.cu", r) for k, r in (
         ("cdf_scan", "src/repro/kernels/cdf_scan.py:78"),
         ("forest_delta", "src/repro/kernels/forest_delta.py:37"),
         ("forest_sample", "src/repro/kernels/forest_sample.py:320"))}
     sources.update(POOL_KERNELS)
     sources["sample_rows"] = ("sample_tiled.cu", "src/repro/kernels/sample_tiled.py:46")
+    sources["flash_attention"] = ("flash_attention.cu",
+                                  "src/repro/kernels/flash_attention.py:73")
     kernels = []
     for name, (src, replaces) in sources.items():
         r = raw[name]
         launches = (main_counts if name in ("cdf_scan", "forest_delta", "forest_sample")
-                    else serve_counts if name == "sample_rows" else pool_counts)[name]
+                    else serve_counts if name == "sample_rows"
+                    else eval_counts if name == "flash_attention" else pool_counts)[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -1299,6 +1539,9 @@ def run() -> dict:
 
 
 def main() -> int:
+    # cuBLAS is deterministic under torch.use_deterministic_algorithms only
+    # with a fixed workspace, set before its first handle (the train phase)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1

@@ -5,7 +5,7 @@ Module paths mirror ``repro``. The package imports ``torch`` and numpy and
 never ``jax`` or ``repro``: what it needs of the JAX package's pure-numpy
 modules it keeps as its own copies (``robust.errors``, ``robust.validate``,
 ``core.alias``'s host builds, ``core.lds``, ``core.metrics``,
-``models.config`` and the config registry).
+``models.config``, the config registry and ``data.pipeline``).
 
 Layers on the card so far:
 
@@ -26,7 +26,17 @@ Layers on the card so far:
   ``serve.engine.ServeEngine``, on the kernels ``cdf_scan`` (softmax
   mode) and ``sample_rows``; ``interop.params_from_jax`` and
   ``cache_from_jax`` carry JAX weights and caches across, and
-  ``ServeEngine.restore`` takes a JAX engine snapshot.
+  ``ServeEngine.restore`` takes a JAX engine snapshot;
+* eval and training of the dense LM: ``models.forward`` and ``loss_fn``
+  (``attn_impl="flash"`` on the kernel ``flash_attention``, forward only;
+  ``"einsum"`` with gradients), ``train`` (AdamW over float32 masters,
+  ``make_train_step`` with microbatches and remat, ``Trainer`` with
+  checkpoint/resume and failure injection), ``data`` (``MixtureSampler``,
+  whose corpus ids are drawn by ``cdf_scan``, ``forest_delta`` and
+  ``forest_sample``, and ``make_batch``), ``ckpt`` (atomic ``save``,
+  ``restore``, ``latest_step``, ``CheckpointManager``) and
+  ``launch.train``; ``interop.params_to_jax`` and ``opt_state_from_jax``
+  carry training state between the packages.
 
 Device policy (see :mod:`repro_torch.device`):
 

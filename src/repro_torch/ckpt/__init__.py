@@ -1,0 +1,4 @@
+"""Trainer checkpoints: atomic save, restore, keep-last-k, async writes."""
+from .checkpoint import CheckpointManager, latest_step, restore, save
+
+__all__ = ["CheckpointManager", "latest_step", "restore", "save"]

@@ -1,4 +1,5 @@
-"""The 24-bit fixed-point QMC stream pipeline of the serving layer (numpy).
+"""The 24-bit fixed-point QMC stream pipeline of the serving layer (numpy),
+and the base-2 radical inverse of the data mixture.
 
 counter -> bit-reversed 24-bit radical inverse -> Cranley-Patterson
 rotation as an integer add mod 2^24 -> exact float32. Every step is exact
@@ -70,3 +71,10 @@ def qmc_bits24(counter: torch.Tensor, offset_bits: torch.Tensor) -> torch.Tensor
 def qmc_point(counter: torch.Tensor, offset_bits: torch.Tensor) -> torch.Tensor:
     """Rotated stream point as exact float32 in [0, 1)."""
     return qmc_bits24(counter, offset_bits).to(torch.float32) * float(QMC_SCALE)
+
+
+def radical_inverse_base2(i: np.ndarray) -> np.ndarray:
+    """Van der Corput sequence in base 2 via 32-bit reversal, float64 on the
+    2^-24 grid (exact in float32)."""
+    b = reverse_bits32_np(np.asarray(i, np.uint32))
+    return (b >> np.uint32(8)).astype(np.float64) * (1.0 / (1 << 24))

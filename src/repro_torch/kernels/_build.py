@@ -28,7 +28,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 _SOURCES = ("cdf_scan.cu", "forest_delta.cu", "forest_sample.cu",
             "forest_sample_batched.cu", "alias_build.cu", "alias_sample.cu",
-            "sample_tiled.cu")
+            "sample_tiled.cu", "flash_attention.cu")
 _HEADERS = ("common.cuh",)
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,7 +36,7 @@ _FLAGS = (
 )
 _LIB = "librepro_torch_kernels.so"
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry points: name -> argument types (all return cudaError_t as int).
 _SIGNATURES = {
     "rt_cdf_scan": (_P, _P, _I, _I, _I, _I, _P),
@@ -49,6 +49,8 @@ _SIGNATURES = {
     "rt_alias_sample_batched": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "rt_alias_smem_max_n": (),
     "rt_sample_rows": (_P, _P, _P, _I, _I, _I, _P),
+    "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *(_L,) * 12,
+                           _I, _I, _F, _P),
 }
 
 

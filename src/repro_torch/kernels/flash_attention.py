@@ -1,0 +1,76 @@
+"""Flash attention (online softmax over key tiles) for the eval forward.
+
+``flash_attention(q, k, v, causal)`` computes what the JAX package's Pallas
+kernel computes: scores of float32 queries scaled by ``1/sqrt(hd)`` against
+float32 keys, keys past ``Sk`` and (when causal) keys after the query masked
+to ``-1e30``, a running max/sum/accumulator in float32, the output
+``acc / max(l, 1e-30)`` cast to q's dtype. Query head ``h`` reads key head
+``h // (H / KV)`` in place (GQA without copying K/V). For CUDA tensors it
+launches the hand-written kernel ``csrc/flash_attention.cu``; for CPU tensors
+it runs the plain version :func:`repro_torch.kernels.ref.ref_flash_attention`
+(materialized scores). The two sum in other orders, so they agree to a
+tolerance, not bit for bit.
+
+There is no backward: the reference cannot differentiate its kernel either
+(``jax.grad`` through the Pallas call raises), so an input that requires
+grad is refused (ROADMAP B10).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+from .ref import ref_flash_attention
+
+HEAD_DIMS = (32, 64, 128)  # the kernel's template instances
+
+
+def _strides(t: torch.Tensor) -> tuple[int, int, int]:
+    """(batch, sequence, head) strides in elements; the head dim is dense."""
+    return t.stride(0), t.stride(1), t.stride(2)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q (B, Sq, H, hd), k/v (B, Sk, KV, hd), all float32 or all bfloat16,
+    ``H % KV == 0``, ``hd`` in (32, 64, 128) -> (B, Sq, H, hd) in q's dtype.
+    Causal masking is top-left aligned: query ``i`` sees keys ``0..i``."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: q, k, v must be 4-D (B, S, heads, hd)")
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if tuple(v.shape) != tuple(k.shape) or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not agree")
+    if KV == 0 or H % KV or Sk == 0:
+        raise ValueError(f"flash_attention: need Sk > 0 and H ({H}) a multiple of KV ({KV})")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("flash_attention: q, k, v must all be float32 or all bfloat16")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: q, k, v must share a device")
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        raise NotImplementedError(
+            "flash_attention has no backward: the JAX reference cannot differentiate its "
+            "Pallas kernel either (ROADMAP B10); train with attn_impl='einsum', or run "
+            "the flash forward under torch.no_grad()")
+    if not q.is_cuda:
+        return ref_flash_attention(q, k, v, causal)
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
+    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    if B * Sq * H == 0:
+        return out
+    err = _build.library().rt_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, Sq, Sk, H, KV, hd, *_strides(q), *_strides(k), *_strides(v), *_strides(out),
+        int(causal), int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(hd),
+        _build.stream_of(q))
+    _build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

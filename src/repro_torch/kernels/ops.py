@@ -17,6 +17,7 @@ from repro_torch.core.forest import RadixForest
 from .alias_build import alias_build_batched as _alias_build_batched
 from .alias_sample import alias_sample_batched as _alias_sample_batched
 from .cdf_scan import cdf_scan
+from .flash_attention import flash_attention as _flash_attention
 from .forest_delta import forest_delta as _forest_delta
 from .forest_delta import forest_delta_update as _forest_delta_update
 from .forest_sample import forest_sample as _forest_sample
@@ -35,6 +36,13 @@ def fused_cdf(x: torch.Tensor, softmax: bool = True) -> torch.Tensor:
 def sample_rows(cdf_rows: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     """Per-row inverse CDF: (B, V) x (B, k) -> (B, k) int32 indices."""
     return _sample_rows(cdf_rows, xi)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Online-softmax attention, forward only: q (B, Sq, H, hd), k/v
+    (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's dtype (GQA ``h // (H/KV)``)."""
+    return _flash_attention(q, k, v, causal=causal)
 
 
 def forest_sample(forest: RadixForest, xi: torch.Tensor) -> torch.Tensor:

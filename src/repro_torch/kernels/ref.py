@@ -232,3 +232,23 @@ def ref_sample_rows(cdf_rows: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
     seg = tiles[torch.arange(B, device=x.device)[:, None], t]            # (B, k, tile)
     off = torch.clamp((seg <= x[:, :, None]).sum(-1), max=tile - 1)
     return torch.clamp(t * tile + off, max=V - 1).to(torch.int32)
+
+
+def ref_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """q (B, Sq, H, hd), k/v (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's dtype:
+    the JAX package's ``ref_flash_attention``. Scores are materialized in
+    float32 and divided by ``sqrt(hd)``; query ``i`` sees key ``j <= i`` when
+    causal (masked to ``-1e30``); float32 softmax, float32 product with V,
+    cast to q's dtype. Query head ``h`` reads key head ``h // (H / KV)``."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, hd).to(torch.float32)
+    s = torch.einsum("bqhgk,bthk->bhgqt", qg, k.to(torch.float32)) / math.sqrt(hd)
+    if causal:
+        keep = (torch.arange(Sk, device=q.device)[None, :]
+                <= torch.arange(Sq, device=q.device)[:, None])
+        s = torch.where(keep, s, -1e30)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqt,bthk->bqhgk", w, v.to(torch.float32))
+    return out.reshape(B, Sq, H, hd).to(q.dtype)

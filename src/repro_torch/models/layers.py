@@ -5,10 +5,15 @@ Each layer keeps the arithmetic of the JAX package's ``models/layers.py``:
 RMSNorm in float32 and cast back, half-split (not interleaved) RoPE in
 float32, attention logits cast to float32 and divided by ``sqrt(hd)``,
 ``-1e30`` masking and a float32 softmax, cast back before the value product.
-Projections and biases are stored in the model's dtype (the JAX package
-keeps float32 masters and casts them at use: the same values); norm scales
-stay float32. Weights are stored as ``(out, in)`` for ``F.linear``;
+Projections and biases are stored in a parameter dtype, by default the
+model's compute dtype (serving); ``param_dtype=torch.float32`` keeps float32
+masters, as the JAX package does for training. Either way each layer casts
+a weight to the activations' dtype at use (``w.to(x.dtype)``, a no-op when
+they agree), as JAX's ``.astype(x.dtype)``. Norm scales stay float32.
+Weights are stored as ``(out, in)`` for ``F.linear``;
 ``repro_torch.interop.params_from_jax`` transposes the JAX layout.
+Parameters are created with ``requires_grad=False``; a trainer turns them
+on with ``requires_grad_()``.
 """
 from __future__ import annotations
 
@@ -17,6 +22,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.kernels import ops
 
 from .config import ModelConfig
 
@@ -30,6 +37,10 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 def _weight(*shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, dtype=dtype, device=device),
                         requires_grad=False)
+
+
+def _zeros(n: int, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(n, dtype=dtype, device=device), requires_grad=False)
 
 
 class RMSNorm(nn.Module):
@@ -87,24 +98,22 @@ def _sdpa(q, k, v, keep: torch.Tensor | None = None):
 
 
 class Attention(nn.Module):
-    """Self-attention with optional QKV bias and qk-norm."""
+    """Self-attention with optional QKV bias and qk-norm; parameters in
+    ``param_dtype`` (default: the model dtype)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, param_dtype=None):
         super().__init__()
         D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        dt = _dtype(cfg)
+        dt = param_dtype or _dtype(cfg)
         self.cfg = cfg
         self.wq = _weight(H * hd, D, dtype=dt, device=device)
         self.wk = _weight(KV * hd, D, dtype=dt, device=device)
         self.wv = _weight(KV * hd, D, dtype=dt, device=device)
         self.wo = _weight(D, H * hd, dtype=dt, device=device)
         if cfg.qkv_bias:
-            self.bq = nn.Parameter(torch.zeros(H * hd, dtype=dt, device=device),
-                                   requires_grad=False)
-            self.bk = nn.Parameter(torch.zeros(KV * hd, dtype=dt, device=device),
-                                   requires_grad=False)
-            self.bv = nn.Parameter(torch.zeros(KV * hd, dtype=dt, device=device),
-                                   requires_grad=False)
+            self.bq = _zeros(H * hd, dt, device)
+            self.bk = _zeros(KV * hd, dt, device)
+            self.bv = _zeros(KV * hd, dt, device)
         if cfg.qk_norm:
             self.q_norm = RMSNorm(hd, cfg.norm_eps, device)
             self.k_norm = RMSNorm(hd, cfg.norm_eps, device)
@@ -114,11 +123,12 @@ class Attention(nn.Module):
         and v (B, S, KV, hd)."""
         cfg = self.cfg
         B, S, _ = x.shape
-        q = F.linear(x, self.wq)
-        k = F.linear(x, self.wk)
-        v = F.linear(x, self.wv)
+        dt = x.dtype
+        q = F.linear(x, self.wq.to(dt))
+        k = F.linear(x, self.wk.to(dt))
+        v = F.linear(x, self.wv.to(dt))
         if cfg.qkv_bias:
-            q, k, v = q + self.bq, k + self.bk, v + self.bv
+            q, k, v = q + self.bq.to(dt), k + self.bk.to(dt), v + self.bv.to(dt)
         q = q.view(B, S, cfg.n_heads, cfg.hd)
         k = k.view(B, S, cfg.n_kv_heads, cfg.hd)
         v = v.view(B, S, cfg.n_kv_heads, cfg.hd)
@@ -129,7 +139,21 @@ class Attention(nn.Module):
 
     def out(self, o: torch.Tensor) -> torch.Tensor:
         """(B, S, H, hd) attention output -> (B, S, D)."""
-        return F.linear(o.flatten(2), self.wo)
+        return F.linear(o.flatten(2), self.wo.to(o.dtype))
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, causal: bool = True,
+                attn_impl: str | None = None) -> torch.Tensor:
+        """Full-sequence self-attention: x (B, S, D), positions (B, S) ->
+        (B, S, D). ``attn_impl`` (default ``cfg.attn_impl``) picks the
+        product: ``"einsum"`` the materialized ``_sdpa``, ``"flash"`` kernel
+        B10 (``kernels.ops.flash_attention``), as JAX ``layers.attention``."""
+        q, k, v = self.qkv(x, positions)
+        if (attn_impl or self.cfg.attn_impl) == "flash":
+            o = ops.flash_attention(q, k, v, causal=causal)
+        else:
+            keep = causal_keep(q.shape[1], k.shape[1], x.device) if causal else None
+            o = _sdpa(q, k, v, keep)
+        return self.out(o)
 
     def decode(self, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                pos: torch.Tensor) -> torch.Tensor:
@@ -146,7 +170,7 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    """SwiGLU: ``wo(silu(wg x) * wi x)``."""
+    """SwiGLU: ``wo(silu(wg x) * wi x)``; weights stored in ``dtype``."""
 
     def __init__(self, d: int, ff: int, dtype, device=None):
         super().__init__()
@@ -155,7 +179,8 @@ class MLP(nn.Module):
         self.wo = _weight(d, ff, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.linear(x, self.wi)
-        g = F.linear(x, self.wg)
-        return F.linear(F.silu(g) * h, self.wo)
+        dt = x.dtype
+        h = F.linear(x, self.wi.to(dt))
+        g = F.linear(x, self.wg.to(dt))
+        return F.linear(F.silu(g) * h, self.wo.to(dt))
 

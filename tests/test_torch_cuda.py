@@ -9,7 +9,9 @@ Distances, descents and alias drains are held bit-exact / elementwise;
 scans to ``SCAN_ATOL`` times the row total (the kernel reassociates the
 sum); the alias build bit for bit on dyadic rows (exact partial sums in any
 order) and to validity and mass conservation on every row; the per-row
-inverse-CDF search elementwise on monotone and dipped rows.
+inverse-CDF search elementwise on monotone and dipped rows; flash attention
+to the JAX suite's tolerances (2e-5 in float32, 2e-2 in bfloat16) against
+its plain version on the same card tensors (the two sum in other orders).
 """
 from pathlib import Path
 
@@ -24,6 +26,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.alias_build import alias_build_batched
 from repro_torch.kernels.alias_sample import alias_sample_batched
 from repro_torch.kernels.cdf_scan import SCAN_ATOL, cdf_scan
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.forest_delta import forest_delta, forest_delta_update
 from repro_torch.kernels.forest_sample import (
     forest_sample,
@@ -316,3 +319,89 @@ def test_engine_steps_on_card(cuda):
     assert sample_rows.launches - before == len(rec.calls) > 0
     for c in rec.calls:
         smoke.check_sampler_call(c)
+
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _qkv(B, Sq, Sk, H, KV, hd, dtype, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, Sq, H, hd), generator=g)
+    k = torch.randn((B, Sk, KV, hd), generator=g)
+    v = torch.randn((B, Sk, KV, hd), generator=g)
+    return [t.to(device=device, dtype=dtype) for t in (q, k, v)]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd", [
+    (1, 128, 128, 4, 4, 32), (2, 96, 96, 4, 2, 64), (1, 256, 256, 8, 2, 32),
+    (2, 64, 64, 2, 1, 128), (1, 100, 100, 2, 2, 32), (1, 1000, 1000, 4, 2, 64),
+    (2, 37, 200, 4, 4, 64), (1, 5, 20, 2, 1, 32), (1, 1024, 1024, 32, 8, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(cuda, B, Sq, Sk, H, KV, hd, causal, dtype):
+    q, k, v = _qkv(B, Sq, Sk, H, KV, hd, dtype, Sq + H + hd, cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = ref.ref_flash_attention(q, k, v, causal=causal)
+    tol = FLASH_TOL[dtype]
+    assert got.dtype == dtype and got.shape == q.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=tol, atol=tol)
+
+
+def test_flash_attention_reads_strided_heads(cuda):
+    """q/k/v as transposed views of (B, heads, S, hd) tensors: read through
+    their strides, with the result of the contiguous inputs."""
+    q, k, v = _qkv(2, 130, 130, 4, 2, 64, torch.bfloat16, 0, cuda)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v))
+    assert not qt.is_contiguous()
+    got = flash_attention(qt, kt, vt, causal=True)
+    assert torch.equal(got, flash_attention(q, k, v, causal=True))
+    with pytest.raises(NotImplementedError, match="B10"):
+        flash_attention(q.requires_grad_(), k, v)
+
+
+def test_forward_flash_matches_einsum_on_card(cuda):
+    """The eval forward with kernel B10 against the einsum path, reduced
+    Qwen3-4B (GQA, qk-norm) in float32 over 200 tokens (ragged tiles);
+    2e-4, the JAX package's own flash-against-einsum tolerance."""
+    import dataclasses
+
+    import repro_torch.configs as C
+    from repro_torch.models import forward, init_params
+
+    cfg = dataclasses.replace(C.get_reduced("qwen3_4b"), dtype="float32")
+    model = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 200), generator=torch.Generator().manual_seed(1))
+    before = flash_attention.launches
+    with torch.no_grad():
+        a, _ = forward(model, cfg, {"tokens": toks})
+        b, _ = forward(model, dataclasses.replace(cfg, attn_impl="flash"), {"tokens": toks})
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == cfg.n_layers
+    np.testing.assert_allclose(b.cpu().numpy(), a.cpu().numpy(), rtol=2e-4, atol=2e-4)
+
+
+def test_trainer_steps_on_card(cuda, tmp_path):
+    """Two trainer steps of a tiny float32 model on the card: finite losses,
+    the mixture drawn by the forest kernels, state checkpointed and
+    restorable."""
+    import dataclasses
+
+    import repro_torch.configs as C
+    from repro_torch.ckpt import latest_step
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = dataclasses.replace(C.get_reduced("qwen1_5_0_5b"), dtype="bfloat16")
+    tc = TrainConfig(steps=2, global_batch=4, seq_len=32, ckpt_dir=str(tmp_path),
+                     log_every=1)
+    before = forest_sample.launches
+    out = Trainer(cfg, tc, log_fn=lambda s: None, device=cuda).run()
+    torch.cuda.synchronize()
+    assert forest_sample.launches - before == 2
+    assert [m["step"] for m in out["metrics"]] == [0, 1]
+    assert all(np.isfinite(m["loss"]) for m in out["metrics"])
+    assert int(out["opt"].step) == 2 and latest_step(tmp_path) == 2
+    assert all(p.dtype == torch.float32 and p.is_cuda for p in out["params"].parameters())

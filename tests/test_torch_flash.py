@@ -1,0 +1,159 @@
+"""Kernel B10's plain version and the port's eval forward against the JAX
+package, on the CPU.
+
+* ``ref_flash_attention`` against JAX's ``ref_flash_attention`` over the
+  sweep of ``tests/test_kernels.py`` (4 shapes x causal x {f32, bf16}) at
+  the JAX suite's tolerances, 2e-5 in float32 and 2e-2 in bfloat16 (one
+  bf16 ulp of outputs up to ~4, where both sides round float32 sums taken
+  in other orders); and against the Pallas kernel in interpret mode on two
+  cases, one ragged (S = 100 over 64-row blocks), at 2e-5.
+* ``forward``/``loss_fn`` at reduced Qwen1.5-0.5B and Qwen3-4B (GQA and
+  qk-norm), 2 layers, 64 tokens, float32, one model run with
+  ``attn_impl="einsum"`` and ``"flash"`` (JAX's flash in interpret mode,
+  as ``tests/test_arch_smoke.py`` runs it): logits within ``atol=1e-5``
+  (O(1) logits; on this CPU the largest gap was 5.2e-7) and the loss within
+  ``1e-5`` (gap 4.8e-7). One bfloat16 case: both sides round the same bf16
+  values after sums in other orders, so logits are held to ``2e-2`` as in
+  ``tests/test_torch_models.py`` and the loss to ``2e-3`` (over 3 seeds of
+  both reduced archs on this CPU: logit gaps up to 7.8e-3, one to two bf16
+  ulps, loss gaps up to 2.7e-4).
+"""
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+import repro.configs as JC
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.models import forward as jax_forward
+from repro.models import init_params as jax_init_params
+from repro.models import loss_fn as jax_loss_fn
+import repro_torch.configs as TC
+from repro_torch.interop import params_from_jax
+from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import forward, init_params, loss_fn
+
+# Start JAX's backend at collection (see tests/test_torch_cdf_forest.py).
+jax.devices()
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the JAX suite's
+FWD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-3)}  # (logits, loss)
+
+
+def _qkv(shape_q, shape_kv, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(0, 1, s).astype(np.float32) for s in (shape_q, shape_kv, shape_kv)]
+
+
+def _torch(a, dtype):
+    return torch.tensor(a).to(getattr(torch, dtype))
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x, np.float32)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", [
+    (1, 128, 4, 4, 32), (2, 96, 4, 2, 64), (1, 256, 8, 2, 32), (2, 64, 2, 1, 128),
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ref_flash_attention_matches_jax_ref(B, S, H, KV, hd, causal, dtype):
+    q, k, v = _qkv((B, S, H, hd), (B, S, KV, hd), dtype, S + H)
+    want = jref.ref_flash_attention(*(jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v)),
+                                    causal=causal)
+    got = ref.ref_flash_attention(*(_torch(a, dtype) for a in (q, k, v)), causal=causal)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal", [
+    (1, 128, 4, 2, 32, False),   # two query and two key tiles, GQA
+    (1, 100, 2, 2, 32, True),    # ragged: padded keys masked in the kernel
+])
+def test_ref_flash_attention_matches_pallas_interpret(B, S, H, KV, hd, causal):
+    q, k, v = _qkv((B, S, H, hd), (B, S, KV, hd), "float32", 0)
+    want = jax_flash(*(jnp.asarray(a) for a in (q, k, v)), causal=causal,
+                     block_q=64, block_k=64, interpret=True)
+    got = ref.ref_flash_attention(*(torch.tensor(a) for a in (q, k, v)), causal=causal)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+
+
+def test_wrapper_runs_plain_version_on_cpu_tensors():
+    q, k, v = (torch.tensor(a) for a in _qkv((2, 40, 4, 16), (2, 40, 2, 16), "float32", 1))
+    before = flash_attention.launches
+    assert torch.equal(flash_attention(q, k, v, causal=False),
+                       ref.ref_flash_attention(q, k, v, causal=False))
+    assert flash_attention.launches == before  # no kernel launch on the CPU
+    with pytest.raises(ValueError):
+        flash_attention(q, k[:, :, :1].expand(2, 40, 3, 16), v)       # H % KV
+    with pytest.raises(ValueError):
+        flash_attention(q, k.to(torch.bfloat16), v)                   # mixed dtypes
+    with pytest.raises(NotImplementedError, match="B10"):
+        flash_attention(q.requires_grad_(), k, v)
+
+
+def _carried(arch, dtype):
+    over = dict(dtype=dtype, n_layers=2)
+    jcfg = dataclasses.replace(JC.get_reduced(arch), **over)
+    tcfg = dataclasses.replace(TC.get_reduced(arch), **over)
+    params = jax_init_params(jax.random.PRNGKey(0), jcfg)
+    rng = np.random.default_rng(1)
+    params = jax.tree_util.tree_map_with_path(   # non-zero biases and norm scales
+        lambda path, x: x + jnp.asarray(rng.normal(0.0, 0.1, x.shape), x.dtype)
+        if any(getattr(k, "key", None) in ("bq", "bk", "bv", "scale") for k in path)
+        else x, params)
+    model = params_from_jax(jax.tree.map(np.asarray, params), tcfg, "cpu",
+                            param_dtype=torch.float32)
+    return jcfg, tcfg, params, model
+
+
+def _batch(vocab, B, S, seed):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, (B, S)).astype(np.int32)
+    labels = toks.copy()
+    labels[0, 10:20] = -1   # masked positions
+    return {"tokens": toks, "labels": labels}
+
+
+@pytest.mark.parametrize("arch,dtype", [("qwen1_5_0_5b", "float32"), ("qwen3_4b", "float32"),
+                                        ("qwen1_5_0_5b", "bfloat16")])
+def test_forward_and_loss_match_jax(arch, dtype):
+    """One carried model, both attention paths, against JAX's forward and
+    loss_fn on the same tokens."""
+    jcfg, tcfg, jp, model = _carried(arch, dtype)
+    batch = _batch(jcfg.vocab, 2, 64, 2)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    logit_tol, loss_tol = FWD_TOL[dtype]
+    for impl in ("einsum", "flash"):
+        jc, tc = (dataclasses.replace(c, attn_impl=impl) for c in (jcfg, tcfg))
+        jl, jaux = jax_forward(jp, jc, jbatch)
+        jloss, jm = jax_loss_fn(jp, jc, jbatch)
+        with torch.no_grad():
+            tl, taux = forward(model, tc, batch)
+            tloss, tm = loss_fn(model, tc, batch)
+        assert tl.dtype == getattr(torch, dtype) and tl.shape == (2, 64, jcfg.vocab)
+        np.testing.assert_allclose(_np(tl), _np(jl), atol=logit_tol, rtol=0)
+        assert float(taux) == float(jaux) == 0.0
+        assert abs(float(tloss) - float(jloss)) <= loss_tol, (impl, float(tloss), float(jloss))
+        assert abs(float(tm["nll"]) - float(jm["nll"])) <= loss_tol
+
+
+def test_flash_forward_under_grad_raises():
+    """The reference has no backward for B10 (jax.grad through the Pallas
+    call raises), so the port refuses a flash forward that autograd would
+    have to differentiate; without gradients it runs."""
+    cfg = dataclasses.replace(TC.get_reduced("qwen1_5_0_5b"), dtype="float32", n_layers=2,
+                              attn_impl="flash")
+    model = init_params(cfg, device="cpu", param_dtype=torch.float32).requires_grad_()
+    batch = _batch(cfg.vocab, 1, 16, 3)
+    with pytest.raises(NotImplementedError, match="B10"):
+        loss_fn(model, cfg, batch)
+    with torch.no_grad():
+        loss, _ = loss_fn(model, cfg, batch)
+    assert np.isfinite(float(loss))

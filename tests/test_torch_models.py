@@ -29,7 +29,7 @@ from repro.models import init_params as jax_init_params
 from repro.models import prefill as jax_prefill
 import repro_torch.configs as TC
 from repro_torch.interop import cache_from_jax, cache_to_leaves, params_from_jax
-from repro_torch.models import decode_step, init_params, prefill
+from repro_torch.models import decode_step, forward, init_params, prefill
 
 # Start JAX's backend at collection (see tests/test_torch_cdf_forest.py).
 jax.devices()
@@ -148,8 +148,10 @@ def test_init_params_is_seeded_and_scaled():
 
 def test_unsupported_configs_raise():
     _, cfg = _cfgs("qwen3_4b")
+    flash = dataclasses.replace(cfg, attn_impl="flash")  # builds; no backward (B10)
+    model = init_params(flash, device="cpu").requires_grad_()
     with pytest.raises(NotImplementedError, match="B10"):
-        init_params(dataclasses.replace(cfg, attn_impl="flash"), device="cpu")
+        forward(model, flash, {"tokens": torch.zeros(1, 4).long()})
     with pytest.raises(NotImplementedError, match="A8"):
         init_params(dataclasses.replace(cfg, mlp_pattern=("moe",)), device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
