@@ -39,10 +39,13 @@ the ignored ``build/`` directory), then:
    (``python -m repro_torch.launch.serve``) once, and the device idle share
    of one decode step; ``sample_rows`` alone at (16, 151936) and (256,
    151936), timed beside its plain version and ``torch.searchsorted``;
-7. the train phase: ``flash_attention`` (B10) against its plain version at
+7. the train phase: the SASS check that B10's bf16 instances run on the
+   tensor cores (``HGMMA``) and its float32 ones do not, with the library's
+   build time; ``flash_attention`` (B10) against its plain version at
    the eval shape (2, 2048, 16 heads, hd 64, bf16, causal), Qwen3-4B's GQA
    (1, 1024, 32/8 heads, hd 128) and a ragged non-causal float32 case,
-   timed beside the plain version and ``scaled_dot_product_attention``;
+   timed beside the plain version and ``scaled_dot_product_attention``,
+   with the achieved TFLOP/s and the share of the bound's rate;
    the eval path, ``loss_fn`` without gradients over Qwen1.5-0.5B at full
    width in bf16 on a 2 x 2048 ``make_batch`` batch, flash against einsum
    (B10 launched once per layer), and the device profile of one forward;
@@ -1240,19 +1243,38 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 256, 4
 MIXTURE = (0.5, 0.25, 0.125, 0.125)
 
 
-def flash_kernels(device, gen) -> dict:
+def flash_sass_check() -> str:
+    """The bf16 instances of B10 issue tensor-core instructions (``HGMMA`` in
+    the library's SASS) and the float32 instances do not."""
+    from repro_torch.kernels import _build
+
+    hgmma = {n: t.count("HGMMA") for n, t in _build.sass().items() if "flash_attention" in n}
+    bf16 = {n: c for n, c in hgmma.items() if "bf16" in n}
+    f32 = {n: c for n, c in hgmma.items() if "f32" in n}
+    check(len(bf16) == 3 and all(bf16.values()), f"HGMMA in every bf16 B10 instance: {bf16}")
+    check(len(f32) == 3 and not any(f32.values()), f"no HGMMA in the float32 B10: {f32}")
+    return (f"HGMMA instructions per bf16 instance {sorted(bf16.values())}, "
+            f"per float32 instance {sorted(f32.values())}")
+
+
+def flash_kernels(device, gen, build_s: float) -> dict:
     """B10 against its plain version at the three FLASH_SHAPES, timed
     (``cuda_ms_per_call``) beside the plain version and
     ``scaled_dot_product_attention`` on the same tensors (K/V expanded for
     GQA and all three laid out (B, heads, S, hd) before timing). The bound:
     the larger of q/k/v/o bytes over 3.35 TB/s and the unmasked
     score-and-value FLOPs (``2*2*B*H*hd`` per visible (query, key) pair)
-    over the dense tensor-core peak of the inputs' type."""
+    over the dense tensor-core peak of the inputs' type (the CUDA-core peak
+    for float32, which B10 runs there); the achieved rate is those FLOPs
+    over the kernel's time. Also the SASS check of the tensor-core
+    instances and the library's build time (``build_s``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
 
+    print(f"flash_attention SASS: {flash_sass_check()}; kernel library (all sources, "
+          f"parallel nvcc and link) built in {build_s:.3f} s", flush=True)
     rows = {}
     for B, S, H, KV, hd, dt, causal in FLASH_SHAPES:
         q, k, v = (torch.randn(shape, generator=gen, device=device).to(dt)
@@ -1281,8 +1303,9 @@ def flash_kernels(device, gen) -> dict:
               f"vs plain {err:.3e} (tol {tol}); SDPA vs plain {lib_err:.3e}; kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
               f"(per call, queued behind a spin); bound {r['bound'][0]:.4f} ms "
-              f"({r['bound'][1]}; {flops / 1e9:.2f} GFLOP, {nbytes(q, k, v, got) / 1e6:.1f} MB)",
-              flush=True)
+              f"({r['bound'][1]}; {flops / 1e9:.2f} GFLOP, {nbytes(q, k, v, got) / 1e6:.1f} MB); "
+              f"{flops / r['ms'] / 1e9:.1f} TFLOP/s, {r['bound'][0] / r['ms']:.1%} of the "
+              f"bound's rate", flush=True)
         rows.setdefault("flash_attention", r)  # the first shape: the eval path's
     return rows
 
@@ -1428,8 +1451,9 @@ def train_launcher(ckpt_root: Path) -> None:
           f"in {time.perf_counter() - t:.1f} s", flush=True)
 
 
-def run() -> dict:
-    """The whole smoke run on the card; returns the kernels record."""
+def run(build_s: float) -> dict:
+    """The whole smoke run on the card (``build_s``: the kernel library's
+    build time); returns the kernels record."""
     import repro_torch.configs as C
     from repro_torch.configs.paper_workloads import env_map_2d
     from repro_torch.kernels.alias_build import alias_build_batched
@@ -1495,7 +1519,7 @@ def run() -> dict:
     raw.update(serve_kernels(device, gen))
     raw["sample_rows"]["max_abs_err"] = max(raw["sample_rows"]["max_abs_err"], serve_err)
 
-    raw.update(flash_kernels(device, gen))
+    raw.update(flash_kernels(device, gen, build_s))
     tcfg = C.get(TRAIN_ARCH)
     erec, eval_counts = counted(eval_path, device, tcfg)
     print(f"launches on the eval path: {eval_counts}", flush=True)
@@ -1561,9 +1585,10 @@ def main() -> int:
 
     t = time.perf_counter()
     _build.library()
-    print(f"kernel library built and loaded in {time.perf_counter() - t:.3f} s", flush=True)
+    build_s = time.perf_counter() - t
+    print(f"kernel library built and loaded in {build_s:.3f} s", flush=True)
 
-    record = run()
+    record = run(build_s)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

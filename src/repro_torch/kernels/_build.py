@@ -127,6 +127,23 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def sass() -> dict[str, str]:
+    """SASS of each function in the built library, by (mangled) name, from
+    ``cuobjdump -sass`` beside ``nvcc``: what the card runs, e.g. to check
+    that a kernel issues tensor-core instructions (``HGMMA``)."""
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(build())], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    return {n: "\n".join(lines) for n, lines in funcs.items()}
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:

@@ -1,15 +1,19 @@
 """Flash attention (online softmax over key tiles) for the eval forward.
 
 ``flash_attention(q, k, v, causal)`` computes what the JAX package's Pallas
-kernel computes: scores of float32 queries scaled by ``1/sqrt(hd)`` against
-float32 keys, keys past ``Sk`` and (when causal) keys after the query masked
-to ``-1e30``, a running max/sum/accumulator in float32, the output
-``acc / max(l, 1e-30)`` cast to q's dtype. Query head ``h`` reads key head
-``h // (H / KV)`` in place (GQA without copying K/V). For CUDA tensors it
-launches the hand-written kernel ``csrc/flash_attention.cu``; for CPU tensors
-it runs the plain version :func:`repro_torch.kernels.ref.ref_flash_attention`
-(materialized scores). The two sum in other orders, so they agree to a
-tolerance, not bit for bit.
+kernel computes: scores of queries scaled by ``1/sqrt(hd)`` against keys in
+float32, keys past ``Sk`` and (when causal) keys after the query masked, a
+running max/sum/accumulator in float32, the output ``acc / max(l, 1e-30)``
+cast to q's dtype. Query head ``h`` reads key head ``h // (H / KV)`` in
+place (GQA without copying K/V). For CUDA tensors it launches the
+hand-written kernel ``csrc/flash_attention.cu``: bfloat16 inputs run on the
+tensor cores (wgmma, TMA loads; the scale is applied after the product and
+the softmax weights are rounded to bf16 before the product with V, as the
+JAX einsum path rounds them), float32 inputs on the CUDA cores (on the
+tensor cores float32 would be TF32). For CPU tensors it runs the plain
+version :func:`repro_torch.kernels.ref.ref_flash_attention` (materialized
+scores). The two sum in other orders, so they agree to a tolerance, not
+bit for bit.
 
 There is no backward: the reference cannot differentiate its kernel either
 (``jax.grad`` through the Pallas call raises), so an input that requires
@@ -32,11 +36,36 @@ def _strides(t: torch.Tensor) -> tuple[int, int, int]:
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+def _tma_ready(t: torch.Tensor) -> bool:
+    """A bf16 (B, S, heads, hd) tensor that TMA reads in place: a 16-byte
+    aligned base, a dense head dim, and (batch, sequence, head) strides that
+    are positive multiples of 8 elements (16 bytes) wherever the size is
+    above 1."""
+    return (t.data_ptr() % 16 == 0 and t.stride(3) == 1
+            and all(t.stride(i) > 0 and t.stride(i) % 8 == 0
+                    for i in range(3) if t.shape[i] > 1))
+
+
+def kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> list[torch.Tensor]:
+    """The tensors the kernel reads. float32: each as it is if its head dim
+    is dense, else a contiguous copy. bfloat16: each as it is if TMA can read
+    it (:func:`_tma_ready`), else an explicit contiguous copy in fresh,
+    aligned memory (``clone``, since ``contiguous()`` returns a misaligned
+    but contiguous view unchanged). Strided views such as the transposes of
+    (B, heads, S, hd) tensors are read in place."""
+    if q.dtype == torch.bfloat16:
+        return [t if _tma_ready(t) else t.clone(memory_format=torch.contiguous_format)
+                for t in (q, k, v)]
+    return [t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v)]
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q (B, Sq, H, hd), k/v (B, Sk, KV, hd), all float32 or all bfloat16,
     ``H % KV == 0``, ``hd`` in (32, 64, 128) -> (B, Sq, H, hd) in q's dtype.
-    Causal masking is top-left aligned: query ``i`` sees keys ``0..i``."""
+    Causal masking is top-left aligned: query ``i`` sees keys ``0..i``.
+    On the card, a bf16 input that TMA cannot read in place (misaligned
+    base or strides) is copied first (:func:`kernel_inputs`)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be 4-D (B, S, heads, hd)")
     B, Sq, H, hd = q.shape
@@ -59,7 +88,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref_flash_attention(q, k, v, causal)
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
-    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = kernel_inputs(q, k, v)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     if B * Sq * H == 0:
         return out

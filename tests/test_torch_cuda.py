@@ -11,7 +11,9 @@ sum); the alias build bit for bit on dyadic rows (exact partial sums in any
 order) and to validity and mass conservation on every row; the per-row
 inverse-CDF search elementwise on monotone and dipped rows; flash attention
 to the JAX suite's tolerances (2e-5 in float32, 2e-2 in bfloat16) against
-its plain version on the same card tensors (the two sum in other orders).
+its plain version on the same card tensors (the two sum in other orders),
+bitwise repeatable, with its bf16 instances on the tensor cores (HGMMA in
+the library's SASS).
 """
 from pathlib import Path
 
@@ -361,6 +363,76 @@ def test_flash_attention_reads_strided_heads(cuda):
     assert torch.equal(got, flash_attention(q, k, v, causal=True))
     with pytest.raises(NotImplementedError, match="B10"):
         flash_attention(q.requires_grad_(), k, v)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd", [
+    (1, 129, 129, 4, 2, 64),      # Sq one row past a 128-row query tile
+    (2, 255, 255, 4, 4, 128),     # Sq one row short of two tiles
+    (1, 100, 300, 4, 2, 64),      # Sq < Sk
+    (1, 200, 50, 4, 4, 32),       # Sk under one 128-key tile, Sq > Sk
+    (1, 50, 50, 2, 2, 64),        # both under one tile
+    (1, 384, 384, 16, 4, 128),    # GQA, G = 4
+    (1, 300, 300, 16, 2, 64),     # GQA, G = 8
+    (1, 257, 257, 8, 1, 32),      # G = 8 at hd 32, ragged
+    (4, 512, 512, 16, 16, 64),    # 256 blocks, more than the SMs
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_tile_edges(cuda, B, Sq, Sk, H, KV, hd, causal):
+    """The tensor-core body at the edges of its 128-row query and 128-key
+    tiles, GQA groups and head dims, against the plain version."""
+    q, k, v = _qkv(B, Sq, Sk, H, KV, hd, torch.bfloat16, Sq + Sk + H + hd, cuda)
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = ref.ref_flash_attention(q, k, v, causal=causal)
+    tol = FLASH_TOL[torch.bfloat16]
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=tol, atol=tol)
+
+
+def test_flash_attention_copies_what_tma_cannot_read(cuda):
+    """bf16 views with a base off the 16-byte grid, or a head stride that is
+    not a multiple of 16 bytes, give the result of their contiguous copies."""
+    q, k, v = _qkv(2, 200, 200, 4, 2, 64, torch.bfloat16, 1, cuda)
+
+    def shifted(t):  # base one element (2 bytes) past an aligned allocation
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    def padded(t):  # rows of hd + 2 elements
+        buf = torch.zeros((*t.shape[:3], t.shape[3] + 2), dtype=t.dtype, device=t.device)
+        buf[..., :t.shape[3]].copy_(t)
+        return buf[..., :t.shape[3]]
+
+    want = flash_attention(q, k, v, causal=True)
+    for make in (shifted, padded):
+        qa, ka, va = (make(t) for t in (q, k, v))
+        assert qa.data_ptr() % 16 or qa.stride(2) % 8
+        assert torch.equal(flash_attention(qa, ka, va, causal=True), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_is_deterministic(cuda, dtype):
+    """Two calls on the same inputs are bitwise equal (no atomics, a fixed
+    summation order)."""
+    q, k, v = _qkv(2, 1000, 1000, 8, 2, 128, dtype, 3, cuda)
+    a = flash_attention(q, k, v, causal=True)
+    b = flash_attention(q, k, v, causal=True)
+    assert torch.equal(a, b)
+
+
+def test_flash_attention_bf16_runs_on_tensor_cores(cuda):
+    """The library's SASS: every bf16 instance of B10 issues HGMMA (wgmma),
+    no float32 instance does."""
+    from repro_torch.kernels import _build
+
+    hgmma = {n: t.count("HGMMA") for n, t in _build.sass().items() if "flash_attention" in n}
+    bf16 = [c for n, c in hgmma.items() if "bf16" in n]
+    f32 = [c for n, c in hgmma.items() if "f32" in n]
+    assert len(bf16) == 3 and all(bf16), hgmma
+    assert len(f32) == 3 and not any(f32), hgmma
 
 
 def test_forward_flash_matches_einsum_on_card(cuda):

@@ -17,8 +17,12 @@ package, on the CPU.
   ``tests/test_torch_models.py`` and the loss to ``2e-3`` (over 3 seeds of
   both reduced archs on this CPU: logit gaps up to 7.8e-3, one to two bf16
   ulps, loss gaps up to 2.7e-4).
+* An emulation of the bf16 CUDA kernel's rounding points (below) against
+  JAX's ``ref_flash_attention`` and its Pallas kernel in interpret mode,
+  at the bf16 tolerance; and which inputs the wrapper copies before TMA.
 """
 import dataclasses
+import math
 
 import numpy as np
 import jax
@@ -35,7 +39,7 @@ from repro.models import loss_fn as jax_loss_fn
 import repro_torch.configs as TC
 from repro_torch.interop import params_from_jax
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, kernel_inputs
 from repro_torch.models import forward, init_params, loss_fn
 
 # Start JAX's backend at collection (see tests/test_torch_cdf_forest.py).
@@ -96,6 +100,83 @@ def test_wrapper_runs_plain_version_on_cpu_tensors():
         flash_attention(q, k.to(torch.bfloat16), v)                   # mixed dtypes
     with pytest.raises(NotImplementedError, match="B10"):
         flash_attention(q.requires_grad_(), k, v)
+
+
+KERNEL_KEY_TILE = 128    # FA_TK of the bf16 body in csrc/flash_attention.cu
+LOG2E = 1.4426950408889634
+
+
+def _emulate_bf16_kernel(q, k, v, causal, tile=KERNEL_KEY_TILE):
+    """The bf16 kernel's arithmetic in plain torch, at its rounding points:
+    products of bf16 q and k summed in float32; the float32 scale times
+    log2(e) applied to the scores after the product; masked scores -inf;
+    per key tile of the kernel's width, m = max(m, rowmax * c),
+    p = exp2(s * c - m), l = l * alpha + rowsum p (float32), and
+    acc = acc * alpha + bf16(p) . v (the unnormalized weights rounded to
+    bf16 before the product); out = acc / max(l, 1e-30) cast to bf16."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    qf, kf, vf = (t.float().repeat_interleave(H // t.shape[2], dim=2).transpose(1, 2)
+                  for t in (q, k, v))                                # (B, H, S, hd)
+    c = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32) * torch.tensor(
+        LOG2E, dtype=torch.float32)
+    m = torch.full((B, H, Sq, 1), -math.inf)
+    l, acc = torch.zeros((B, H, Sq, 1)), torch.zeros((B, H, Sq, hd))
+    qpos = torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, tile):
+        kpos = torch.arange(k0, min(k0 + tile, Sk))[None, :]
+        s = qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2)
+        if causal:
+            s = torch.where(kpos <= qpos, s, -math.inf)
+        n = torch.maximum(m, s.amax(-1, keepdim=True) * c)
+        u = torch.where(n == -math.inf, 0.0, n)
+        alpha = torch.exp2(m - u)
+        p = torch.exp2(s * c - u)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + tile]
+        m = n
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", [
+    (1, 1024, 2, 2, 64),     # eight key tiles, the eval path's head dim
+    (1, 300, 4, 2, 128),     # ragged: 2 x 128 + 44 keys, GQA, hd 128
+])
+def test_bf16_kernel_rounding_matches_jax(B, S, H, KV, hd):
+    """The rounding of the tensor-core design (scale after the product,
+    exp2, bf16 weights before P.V, 128-key tiles) stays within the JAX
+    suite's bf16 tolerance of both JAX oracles, causal."""
+    q, k, v = _qkv((B, S, H, hd), (B, S, KV, hd), "bfloat16", S + hd)
+    got = _emulate_bf16_kernel(*(_torch(a, "bfloat16") for a in (q, k, v)), causal=True)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    for want in (jref.ref_flash_attention(jq, jk, jv, causal=True),
+                 jax_flash(jq, jk, jv, causal=True, interpret=True)):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=TOL["bfloat16"],
+                                   atol=TOL["bfloat16"])
+
+
+def test_kernel_inputs_copy_only_what_tma_cannot_read():
+    """bf16: transposed views of (B, heads, S, hd) tensors are read in place;
+    a base off the 16-byte grid or a head stride that is not a multiple of
+    8 elements is copied into fresh contiguous memory. float32 (the CUDA-core
+    body reads any strides) copies only a non-dense head dim."""
+    x = torch.randn(2, 40, 4, 64).to(torch.bfloat16)
+    strided = x.transpose(1, 2).contiguous().transpose(1, 2)
+    assert kernel_inputs(strided, strided, strided)[0].data_ptr() == strided.data_ptr()
+    buf = torch.empty(x.numel() + 1, dtype=torch.bfloat16)
+    shifted = buf[1:].view(x.shape)
+    shifted.copy_(x)
+    padded = torch.zeros(2, 40, 4, 66, dtype=torch.bfloat16)[..., :64]
+    padded.copy_(x)
+    for t in (shifted, padded):
+        assert t.data_ptr() % 16 or t.stride(2) % 8
+        got = kernel_inputs(t, t, t)[0]
+        assert got.data_ptr() != t.data_ptr() and got.data_ptr() % 16 == 0
+        assert got.is_contiguous() and torch.equal(got, t)
+    f = torch.empty(x.numel() + 1)[1:].view(x.shape)
+    assert f.data_ptr() % 16 and kernel_inputs(f, f, f)[0] is f
+    g = torch.randn(2, 40, 4, 128)[..., ::2]
+    assert kernel_inputs(g, g, g)[0].is_contiguous()
 
 
 def _carried(arch, dtype):
