@@ -26,7 +26,9 @@ the ignored ``build/`` directory), then:
    CPU build from the same CDF bits, the alias build (bit-exact on dyadic
    tenants, valid and mass-conserving on all), a per-tenant chi-square;
 5. holds each pool kernel against its plain version at 2^22 lanes on the
-   largest class's stacks and times it; prints admission times by class,
+   largest class's stacks and times it; times ``alias_build_batched`` on one
+   row at every pool class 32..65536 and on a full 65536 class; prints
+   admission times by class,
    the device idle share and the host profile of one drain;
 6. drives the serve path: a ``ServeEngine`` (16 slots, 256-token KV budget)
    over Qwen1.5-0.5B at full width in bfloat16 with seeded random weights,
@@ -55,14 +57,20 @@ the ignored ``build/`` directory), then:
    mixture's forest kernels counted; step time, the profile of one step,
    and the training launcher once in a subprocess;
 8. prints the kernels line (launch counts from the runs of steps 3, 4, 6
-   and 7's eval path, each with every count set to 0 just before it), then
-   the result line as the last line of standard output.
+   and 7's eval path, each with every count set to 0 just before it; each
+   kernel's launches and summed device time on each of the five paths, main,
+   pool, serve, eval and train: the time from torch.profiler, CUDA activity
+   only, by the kernels' symbols, around a second counted run of each path
+   at the end, so the first runs' times carry no tracing cost), then the
+   result line as the last line of standard output.
 
 Any failed check raises and exits non-zero. Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -302,6 +310,51 @@ def profile_calls(calls) -> None:
               f"{sum(e.count for e in kernels)} kernel launches; top: "
               + "; ".join(f"{e.key[:48]} x{e.count} {dev_us(e) / 1e3:.3f} ms"
                           for e in top), flush=True)
+
+
+# The kernels each wrapper launches, by symbol: the profiler's keys are these
+# names demangled, with template arguments and parameter lists.
+KERNEL_SYMBOLS = {
+    "cdf_scan": ("cdf_scan_kernel",),
+    "forest_delta": ("forest_delta_kernel",),
+    "forest_sample": ("forest_sample_kernel",),
+    "forest_delta_update": ("forest_delta_update_kernel",),
+    "forest_sample_batched": ("forest_sample_batched_kernel<false>",),
+    "forest_sample_batched_streams": ("forest_sample_batched_kernel<true>",),
+    "alias_build_batched": ("alias_build_row", "alias_build_partials", "alias_build_records",
+                            "alias_build_tapes", "alias_build_search"),
+    "alias_sample_batched": ("alias_sample_batched_kernel",),
+    "sample_rows": ("sample_rows_kernel",),
+    "flash_attention": ("flash_attention_f32", "flash_attention_bf16_wgmma"),
+}
+PATHS = ("main", "pool", "serve", "eval", "train")
+
+
+def kernel_of(key: str):
+    """The wrapper whose kernel a profiler key names, or None. Boolean
+    template arguments may be demangled as ``true`` or ``(bool)1``."""
+    rest = key.strip()
+    if rest.startswith("void "):
+        rest = rest[5:]
+    name = rest.split("<")[0].split("(")[0].strip()
+    if rest[len(name):].startswith("<"):
+        targ = rest[len(name) + 1:].split(">")[0]
+        flag = {"true": "true", "(bool)1": "true", "false": "false", "(bool)0": "false"}
+        name = f"{name}<{flag.get(targ, targ)}>" if targ in flag else name
+    for wrapper, syms in KERNEL_SYMBOLS.items():
+        if name in syms:
+            return wrapper
+    return None
+
+
+def kernel_device_ms(prof) -> dict:
+    """Summed device time (ms) of each wrapper's kernels in a profile."""
+    out = dict.fromkeys(KERNEL_SYMBOLS, 0.0)
+    for e in device_events(prof):
+        k = kernel_of(e.key)
+        if k is not None:
+            out[k] += dev_us(e) / 1e3
+    return out
 
 
 def device_profile(device, weights: np.ndarray, m: int, n_draws: int, gen) -> None:
@@ -894,6 +947,43 @@ def pool_kernels(rec: dict, device, gen, n_lanes: int) -> dict:
           f"== np_sample_alias_f32; forest_sample_batched(_streams) elementwise == "
           f"plain, coalesce on and off", flush=True)
     return rows
+
+
+ALIAS_CLASSES = tuple(1 << k for k in range(POOL_KMIN, POOL_KMAX + 1))
+ALIAS_FULL_ROWS = 164        # rows of the pool run's 65536 alias class
+
+
+def alias_build_times(device) -> None:
+    """B7 on one row at every pool class (an update or a single insert),
+    and on a full 65536 class (an admission wave), by cuda_ms_per_call,
+    with the blocks each launch step runs. Every table is checked valid,
+    and on a dyadic row of each class equal to the plain version."""
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.alias_build import alias_build_batched
+
+    rng = np.random.default_rng(5)
+    cases = [(f"{n}", torch.as_tensor(rng.random((1, n)) ** 6 + 1e-9, dtype=torch.float32,
+                                      device=device)) for n in ALIAS_CLASSES]
+    n = ALIAS_CLASSES[-1]
+    full = rng.random((ALIAS_FULL_ROWS, n)) ** 6 + 1e-9
+    for r, real in enumerate(rng.integers(n // 2 + 1, n + 1, ALIAS_FULL_ROWS)):
+        full[r, real:] = 0.0
+    cases.append((f"{n} x{ALIAS_FULL_ROWS}", torch.as_tensor(full, dtype=torch.float32,
+                                                             device=device)))
+    parts = []
+    for label, w in cases:
+        B, n = w.shape
+        dy = torch.as_tensor(dyadic_weights(n, rng)[None], dtype=torch.float32, device=device)
+        q, a = alias_build_batched(dy)
+        pq, pa = ref.ref_alias_build_batched(dy)
+        check(torch.equal(q, pq) and torch.equal(a, pa), f"alias_build dyadic row n={n}")
+        q, a = alias_build_batched(w)
+        check(bool(((q >= 0) & (q <= 1)).all()) and bool(((a >= 0) & (a < n)).all()),
+              f"alias_build valid at {label}")
+        ms = cuda_ms_per_call(lambda: alias_build_batched(w), 50 if B == 1 else 5)
+        parts.append(f"{label} {ms:.6f} [{B * _build.library().rt_alias_tiles(n)} blocks]")
+    print("alias_build_batched by class, ms per call (cuda_ms_per_call) [blocks a launch "
+          "step]: " + "; ".join(parts), flush=True)
 
 
 def pool_admission_by_class(rec: dict, device) -> None:
@@ -1490,26 +1580,54 @@ def run(build_s: float) -> dict:
                 "sample_rows": sample_rows,
                 "flash_attention": flash_attention}
 
-    def counted(path, *args, **kwargs):
-        """Drive one path with every count at 0; its result and counts."""
+    counts, path_ms = {}, {}
+
+    def counted(label, path, *args, **kwargs):
+        """Drive one path with every count at 0; keep and print its counts,
+        and return the path's result."""
         for fn in wrappers.values():
             fn.launches = 0
         out = path(*args, **kwargs)
-        return out, {k: fn.launches for k, fn in wrappers.items()}
+        counts[label] = {k: fn.launches for k, fn in wrappers.items()}
+        print(f"launches on the {label} path: {counts[label]}", flush=True)
+        return out
 
-    _, main_counts = counted(main_path, device, weights, m, n_draws, gen)
-    rec, pool_counts = counted(pool_path, device)
-    print(f"launches on the main path: {main_counts}", flush=True)
-    print(f"launches on the pool path: {pool_counts}", flush=True)
+    def profiled(label, path, *args, **kwargs):
+        """Drive one path again with every count at 0, under torch.profiler
+        (CUDA activity only) and with its printing muted: each kernel's
+        summed device time there. Its counts must equal the first run's.
+        The first run stays unprofiled, so the times it prints carry no
+        tracing cost."""
+        from torch.profiler import ProfilerActivity, profile
+
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            path(*args, **kwargs)
+            torch.cuda.synchronize()
+        check({k: fn.launches for k, fn in wrappers.items()} == counts[label],
+              f"the {label} path launches the same kernels when run again")
+        path_ms[label] = kernel_device_ms(prof)
+        for k, c in counts[label].items():
+            check(c == 0 or path_ms[label][k] > 0,
+                  f"{k}: device time on the {label} path under its symbols")
+        print(f"kernel device ms on the {label} path (profiler, a second counted run): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in path_ms[label].items() if v > 0),
+              flush=True)
+
+    counted("main", main_path, device, weights, m, n_draws, gen)
+    rec = counted("pool", pool_path, device)
     pool_checks(rec, device)
     raw.update(pool_kernels(rec, device, gen, POOL_KERNEL_LANES))
+    alias_build_times(device)
     pool_admission_by_class(rec, device)
     pool_profile(rec, device, POOL_DRAWS)
     del rec
 
     cfg = C.get(SERVE_ARCH)
-    srec, serve_counts = counted(serve_path, device, cfg)
-    print(f"launches on the serve path: {serve_counts}", flush=True)
+    srec = counted("serve", serve_path, device, cfg)
     serve_err = serve_checks(srec, device)
     serve_model_check(device, cfg)
     serve_chi_square(srec, device, gen, SERVE_CHI2_DRAWS)
@@ -1521,19 +1639,23 @@ def run(build_s: float) -> dict:
 
     raw.update(flash_kernels(device, gen, build_s))
     tcfg = C.get(TRAIN_ARCH)
-    erec, eval_counts = counted(eval_path, device, tcfg)
-    print(f"launches on the eval path: {eval_counts}", flush=True)
+    erec = counted("eval", eval_path, device, tcfg)
     eval_profile(erec)
     del erec
     ckpt_root = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
-    trec, train_counts = counted(train_path, device, tcfg, ckpt_root)
-    print(f"launches on the train path: {train_counts}", flush=True)
+    trec = counted("train", train_path, device, tcfg, ckpt_root)
     for name in ("cdf_scan", "forest_delta", "forest_sample"):
-        check(train_counts[name] > 0, f"{name} launched by the trainer's mixture")
-    check(train_counts["flash_attention"] == 0, "training runs einsum attention")
+        check(counts["train"][name] > 0, f"{name} launched by the trainer's mixture")
+    check(counts["train"]["flash_attention"] == 0, "training runs einsum attention")
     train_timing(trec, tcfg, device)
     del trec
     train_launcher(ckpt_root)
+
+    profiled("main", main_path, device, weights, m, n_draws, gen)
+    profiled("pool", pool_path, device)
+    profiled("serve", serve_path, device, cfg)
+    profiled("eval", eval_path, device, tcfg)
+    profiled("train", train_path, device, tcfg, ckpt_root)
 
     sources = {k: (f"{k}.cu", r) for k, r in (
         ("cdf_scan", "src/repro/kernels/cdf_scan.py:78"),
@@ -1546,16 +1668,18 @@ def run(build_s: float) -> dict:
     kernels = []
     for name, (src, replaces) in sources.items():
         r = raw[name]
-        launches = (main_counts if name in ("cdf_scan", "forest_delta", "forest_sample")
-                    else serve_counts if name == "sample_rows"
-                    else eval_counts if name == "flash_attention" else pool_counts)[name]
+        own = ("main" if name in ("cdf_scan", "forest_delta", "forest_sample")
+               else "serve" if name == "sample_rows"
+               else "eval" if name == "flash_attention" else "pool")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": counts[own][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"],
+            "launches_by_path": {p: counts[p][name] for p in PATHS},
+            "device_ms_by_path": {p: path_ms[p][name] for p in PATHS},
         })
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} launched on its path")

@@ -37,7 +37,8 @@ _FLAGS = (
 _LIB = "librepro_torch_kernels.so"
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# C entry points: name -> argument types (all return cudaError_t as int).
+# C entry points: name -> argument types. They return cudaError_t as int,
+# apart from the queries named in _RETURNS.
 _SIGNATURES = {
     "rt_cdf_scan": (_P, _P, _I, _I, _I, _I, _P),
     "rt_forest_delta": (_P, _P, _I, _I, _P),
@@ -46,12 +47,15 @@ _SIGNATURES = {
     "rt_forest_sample_batched": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "rt_alias_build": (_P, _P, _P, _P, _I, _I, _P),
+    "rt_alias_tiles": (_I,),
+    "rt_alias_scratch_words": (_I,),
     "rt_alias_sample_batched": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "rt_alias_smem_max_n": (),
     "rt_sample_rows": (_P, _P, _P, _I, _I, _I, _P),
     "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *(_L,) * 12,
                            _I, _I, _F, _P),
 }
+
+_RETURNS = {"rt_alias_scratch_words": _L}
 
 
 def _nvcc() -> str:
@@ -123,7 +127,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = _RETURNS.get(name, ctypes.c_int)
     return lib
 
 

@@ -1,10 +1,13 @@
-"""Batched split-and-pack alias construction: B packed tables in one launch.
+"""Batched split-and-pack alias construction: B packed tables in one call.
 
 For a CUDA tensor this launches the hand-written kernel
-``csrc/alias_build.cu`` (one block per row: row sum, masked demand and
-supply scans pinned by a running max, three binary searches per cell); for
-a CPU tensor it runs the plain version
-:func:`repro_torch.kernels.ref.ref_alias_build_batched`.
+``csrc/alias_build.cu``; for a CPU tensor it runs the plain version
+:func:`repro_torch.kernels.ref.ref_alias_build_batched`. The kernel cuts
+each row into tiles of 2048 cells, one block a tile, and builds in four
+launches (tile sums, tile records, tapes from carries summed in tile
+order, searches in windows of the tapes) with no look-back and no float
+atomics, so a row's table depends on the row and ``n`` alone; a row of up
+to one tile is one block in one launch.
 
 Both carry the demand and supply tapes in float64 (the per-cell terms stay
 float32, as in the JAX core): float32 tapes misroute whole cells on rows of
@@ -18,18 +21,10 @@ sum to ``n`` within a few ulps of ``n``).
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from . import _build
 from .ref import ref_alias_build_batched
-
-
-@functools.cache
-def _smem_max_n() -> int:
-    """Longest row whose tapes the kernel keeps in shared memory."""
-    return _build.library().rt_alias_smem_max_n()
 
 
 def alias_build_batched(weights: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -45,13 +40,13 @@ def alias_build_batched(weights: torch.Tensor) -> tuple[torch.Tensor, torch.Tens
     if B == 0 or n == 0:
         return q, alias
     w = weights.contiguous()
-    scratch = None
-    if n > _smem_max_n():
-        scratch = torch.empty((B, 2, n), dtype=torch.float64, device=w.device)
-    err = _build.library().rt_alias_build(
+    lib = _build.library()
+    per_row = lib.rt_alias_scratch_words(n)
+    scratch = (torch.empty(B * per_row, dtype=torch.float64, device=w.device)
+               if per_row else None)
+    err = lib.rt_alias_build(
         w.data_ptr(), q.data_ptr(), alias.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), B, n,
-        _build.stream_of(w))
+        None if scratch is None else scratch.data_ptr(), B, n, _build.stream_of(w))
     _build.check(err, "alias_build_batched")
     alias_build_batched.launches += 1
     return q, alias

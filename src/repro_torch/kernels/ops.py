@@ -87,7 +87,7 @@ def forest_sample_batched_streams(forest, dist_id: torch.Tensor,
 
 def alias_build_batched(weights: torch.Tensor):
     """Batched split-and-pack alias construction: (B, n) stacked weights ->
-    packed ``(q, alias)`` (B, n) stacks, one launch."""
+    packed ``(q, alias)`` (B, n) stacks, one call."""
     return _alias_build_batched(weights)
 
 

@@ -6,7 +6,7 @@ in a row is row-local, so row ``b`` is exactly the single-distribution
 structure of distribution ``b``. The batched builds run every row in one
 pass: the forest build as one flat ``forest_from_cdf`` over the stacked
 CDFs (row boundaries carry the sentinel distance), the alias build as one
-``alias_build_batched`` launch. The drains resolve a mixed ``(dist_id,
+``alias_build_batched`` call. The drains resolve a mixed ``(dist_id,
 uniform)`` batch with one kernel launch each.
 """
 from __future__ import annotations
@@ -101,7 +101,7 @@ def sample_forest_batched(forest: BatchedForest, dist_id, xi,
 
 
 def build_alias_batched(weights, device="cuda") -> BatchedAlias:
-    """(B, n) weights -> B packed alias tables in one launch."""
+    """(B, n) weights -> B packed alias tables in one call."""
     return BatchedAlias(*ops.alias_build_batched(
         to_device(weights, device, torch.float32)))
 

@@ -203,6 +203,135 @@ def test_alias_build_matches_plain(cuda, n):
     assert not np.any(np.isin(a[0], np.arange(n // 2, n)) & (q[0] < 1.0))
 
 
+def _check_alias_tables(W, q, a):
+    """Valid tables that conserve each cell's mass n*p to the tolerance of
+    ROADMAP C6, with zero (padded) cells at q == 0 and never an alias
+    target of a cell that can take it."""
+    B, n = W.shape
+    q, a = q.cpu().numpy(), a.cpu().numpy()
+    assert np.all((q >= 0) & (q <= 1)) and np.all((a >= 0) & (a < n))
+    for b in range(B):
+        npi = W[b].astype(np.float64) / W[b].sum(dtype=np.float64) * n
+        mass = q[b].astype(np.float64).copy()
+        np.add.at(mass, a[b], 1.0 - q[b].astype(np.float64))
+        np.testing.assert_allclose(mass, npi, rtol=2e-4, atol=2e-4 + n * 2.0**-22)
+        zero = W[b] == 0
+        assert np.all(q[b][zero] == 0.0)
+        assert not np.any(zero[a[b]] & (q[b] < 1.0))
+
+
+def _check_dyadic_exact(dy, cuda):
+    """A dyadic stack on the card: bit-equal to the plain version and to
+    the host build_alias_parallel, row by row."""
+    q, a = alias_build_batched(torch.from_numpy(dy).to(cuda))
+    wq, wa = alias_build_batched(torch.from_numpy(dy))
+    assert torch.equal(q.cpu(), wq) and torch.equal(a.cpu(), wa)
+    for b in range(dy.shape[0]):
+        t = build_alias_parallel(dy[b].astype(np.float64), device="cpu")
+        assert torch.equal(q[b].cpu(), t.q) and torch.equal(a[b].cpu(), t.alias)
+
+
+@pytest.mark.parametrize("n", [300, 1000, 4096, 65536])
+def test_alias_build_row_alone_equals_row_in_stack(cuda, n):
+    """A row's table depends on the row and n alone: built alone (an
+    update) it is bit-equal to the same row inside a 7-row stack (an
+    admission wave), off the dyadic grid too."""
+    rng = np.random.default_rng(n + 7)
+    W = (rng.random((7, n)) ** 6 + 1e-9).astype(np.float32)
+    W[3, n // 3:] = 0.0
+    q, a = alias_build_batched(torch.from_numpy(W).to(cuda))
+    for b in range(7):
+        qb, ab = alias_build_batched(torch.from_numpy(W[b:b + 1]).to(cuda))
+        assert torch.equal(qb[0], q[b]) and torch.equal(ab[0], a[b]), b
+
+
+@pytest.mark.parametrize("n", [2048, 65536])
+def test_alias_build_is_bitwise_repeatable(cuda, n):
+    rng = np.random.default_rng(n + 8)
+    W = torch.from_numpy((rng.random((5, n)) ** 6 + 1e-9).astype(np.float32)).to(cuda)
+    first = alias_build_batched(W)
+    for _ in range(3):
+        again = alias_build_batched(W)
+        assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+
+
+@pytest.mark.parametrize("n", [512, 513, 2047, 2048, 2049, 16384, 65537])
+def test_alias_build_tile_edges(cuda, n):
+    """Rows at and around the tile of 2048 cells, a pool class of 8 tiles,
+    a row one cell past the largest class, and the one-tile body's switch
+    from one cell at a time to interleaved searches (two cells a thread):
+    bit-exact on dyadic rows, valid and mass-conserving on others, padded
+    or not."""
+    _check_dyadic_exact(_dyadic_rows(n, 3, n), cuda)
+    rng = np.random.default_rng(n + 9)
+    W = (rng.random((4, n)) ** 6 + 1e-9).astype(np.float32)
+    W[0, n // 2 + 1:] = 0.0
+    W[1, :n // 5] = 0.0
+    q, a = alias_build_batched(torch.from_numpy(W).to(cuda))
+    _check_alias_tables(W, q, a)
+
+
+def _one_heavy_rows(n):
+    """Dyadic rows (total 2n, lights at n*p = 1/2): (a) three heavies, two
+    of them small and one holding half the mass, so the heavies' queries
+    of the first tile reach across the row; (b) one heavy, all other
+    cells light."""
+    span = np.ones(n, np.float32)
+    span[0] = span[n // 13] = 3.0
+    span[1] = 2 * n - (n - 3) - 6
+    one = np.ones(n, np.float32)
+    one[n // 2] = n + 1
+    return np.stack([span, one])
+
+
+@pytest.mark.parametrize("n", [4096, 65536])
+def test_alias_build_window_spans_row(cuda, n):
+    """Rows whose search windows span the row (longer than what shared
+    memory stages): bit-exact on the dyadic rows; valid and
+    mass-conserving on the same shapes off the grid."""
+    dy = _one_heavy_rows(n)
+    assert all(r.sum() == 2 * n for r in dy)
+    _check_dyadic_exact(dy, cuda)
+    W = np.full((2, n), 1e-3, np.float32)
+    W[0, 0], W[0, 1], W[0, n // 13] = 2e-3, 60.0, 3e-3
+    W[1, n // 2] = 50.0
+    q, a = alias_build_batched(torch.from_numpy(W).to(cuda))
+    _check_alias_tables(W, q, a)
+    assert np.all(a[1].cpu().numpy() == n // 2)
+
+
+def test_alias_build_dyadic_65536_bit_exact(cuda):
+    _check_dyadic_exact(_dyadic_rows(1 << 16, 4, 16), cuda)
+
+
+def test_alias_build_conserves_mass_at_65536(cuda):
+    """The pool's rows at its largest class, padded to it from every real
+    size range of the class, at C6's tolerance."""
+    n = 1 << 16
+    rng = np.random.default_rng(17)
+    W = (rng.random((8, n)) ** 6 + 1e-9).astype(np.float32)
+    for b, real in enumerate((n, n - 1, 60000, 50000, 40000, 32769, 32769, n // 2 + 3)):
+        W[b, real:] = 0.0
+    q, a = alias_build_batched(torch.from_numpy(W).to(cuda))
+    _check_alias_tables(W, q, a)
+
+
+def test_alias_build_padded_cells_unreachable(cuda):
+    """Zero-padded cells of multi-tile rows: q == 0, never an alias target,
+    and no uniform reaches them through the drain's float32 rule."""
+    rng = np.random.default_rng(18)
+    n = 1 << 14
+    W = np.zeros((3, n), np.float32)
+    reals = (n // 2 + 1, 3000, 2049)
+    for b, real in enumerate(reals):
+        W[b, :real] = rng.random(real) ** 6 + 1e-9
+    q, a = alias_build_batched(torch.from_numpy(W).to(cuda))
+    _check_alias_tables(W, q, a)
+    xi = rng.random(200_000).astype(np.float32)
+    for b, real in enumerate(reals):
+        assert np.all(np_sample_alias_f32(q[b].cpu().numpy(), a[b].cpu().numpy(), xi) < real)
+
+
 @pytest.mark.parametrize("n", [8, 300, 65536])
 def test_alias_sample_matches_f32_oracle(cuda, n):
     rng = np.random.default_rng(n)

@@ -152,6 +152,40 @@ def test_alias_build_zero_padded_cells_unreachable():
     assert np.all(np_sample_alias_f32(q, a, xi) < 3)
 
 
+@pytest.mark.parametrize("n", [1, 31, 2047, 2048, 2049, 4096, 40000, 65536, 65537])
+def test_alias_build_plain_at_tile_edges(n):
+    """The plain version at the kernel's tile edges (2048 cells a tile):
+    bit-equal to the host build on a dyadic row; valid and mass-conserving
+    on a power-law row whose last quarter is zero padding, the padding at
+    q == 0 and never an alias target."""
+    rng = np.random.default_rng(n)
+    dy = _dyadic(n, rng)
+    q, a = alias_build_batched(torch.from_numpy(dy.astype(np.float32)[None]))
+    host = build_alias_parallel(dy, device="cpu")
+    assert torch.equal(q[0], host.q) and torch.equal(a[0], host.alias)
+    w = (rng.random(n) ** 6 + 1e-9).astype(np.float32)
+    real = n - n // 4
+    w[real:] = 0.0
+    q, a = (x[0].numpy() for x in alias_build_batched(torch.from_numpy(w[None])))
+    assert np.all((q >= 0.0) & (q <= 1.0)) and np.all((a >= 0) & (a < n))
+    npi = w.astype(np.float64) / w.sum(dtype=np.float64) * n
+    np.testing.assert_allclose(_mass(q, a), npi, rtol=2e-4, atol=_atol(n))
+    assert np.all(q[real:] == 0.0) and not np.any((a >= real) & (q < 1.0))
+
+
+def test_alias_build_plain_row_alone_equals_row_in_stack():
+    """A row's table depends on the row and n alone: each row of a 7-row
+    stack of non-dyadic rows equals the same row built alone."""
+    rng = np.random.default_rng(11)
+    n = 4099
+    W = (rng.random((7, n)) ** 6 + 1e-9).astype(np.float32)
+    W[3, n // 3:] = 0.0
+    q, a = alias_build_batched(torch.from_numpy(W))
+    for b in range(7):
+        qb, ab = alias_build_batched(torch.from_numpy(W[b:b + 1]))
+        assert torch.equal(qb[0], q[b]) and torch.equal(ab[0], a[b]), b
+
+
 def test_alias_sample_plain_matches_f32_oracle():
     rng = np.random.default_rng(7)
     n = 32
