@@ -41,6 +41,10 @@ the ignored ``build/`` directory), then:
    (``python -m repro_torch.launch.serve``) once, and the device idle share
    of one decode step; ``sample_rows`` alone at (16, 151936) and (256,
    151936), timed beside its plain version and ``torch.searchsorted``;
+   ``cdf_scan`` (B3) at the decode shape (16, 151936) in bf16 and float32,
+   timed beside its plain version, softmax plus cumsum (two library calls)
+   and cumsum alone; a row's scan bits checked alone, in a stack of 7 and
+   in the whole stack, and from run to run, in every regime of its plan;
 7. the train phase: the SASS check that B10's bf16 instances run on the
    tensor cores (``HGMMA``) and its float32 ones do not, with the library's
    build time; ``flash_attention`` (B10) against its plain version at
@@ -61,8 +65,9 @@ the ignored ``build/`` directory), then:
    kernel's launches and summed device time on each of the five paths, main,
    pool, serve, eval and train: the time from torch.profiler, CUDA activity
    only, by the kernels' symbols, around a second counted run of each path
-   at the end, so the first runs' times carry no tracing cost), then the
-   result line as the last line of standard output.
+   at the end, so the first runs' times carry no tracing cost; ``cdf_scan``
+   also carries its decode-shape times as ``at_decode``), then the result
+   line as the last line of standard output.
 
 Any failed check raises and exits non-zero. Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no result.
@@ -182,12 +187,13 @@ def kernel_phase(device, weights: np.ndarray, m: int, n_draws: int, gen):
                   f"normalize={normalize}: max |err| / row total = "
                   f"{float((err / total).max()):.3e}", flush=True)
     torch.cuda.synchronize()
-    scan_ms = cuda_ms(lambda: cdf_scan(rows, softmax=False, normalize=False), 20)
-    scan_plain = cuda_ms(lambda: ref.ref_cdf_scan(rows, False, False), 20)
-    scan_lib = cuda_ms(lambda: torch.cumsum(rows, dim=1), 20)
+    # Microsecond scans: per call, queued behind a card spin (cuda_ms_per_call).
+    scan_ms = cuda_ms_per_call(lambda: cdf_scan(rows, softmax=False, normalize=False), 100)
+    scan_plain = cuda_ms_per_call(lambda: ref.ref_cdf_scan(rows, False, False), 20)
+    scan_lib = cuda_ms_per_call(lambda: torch.cumsum(rows, dim=1), 100)
     for name, x, sm in (("logits", logits, True), ("positive", pos, False)):
-        t = cuda_ms(lambda: cdf_scan(x, softmax=sm), 20)
-        print(f"cdf_scan {name}{tuple(x.shape)} softmax={sm}: {t:.4f} ms", flush=True)
+        t = cuda_ms_per_call(lambda: cdf_scan(x, softmax=sm), 100)
+        print(f"cdf_scan {name}{tuple(x.shape)} softmax={sm}: {t:.6f} ms per call", flush=True)
     rows_raw["cdf_scan"] = dict(
         max_abs_err=scan_err, ms=scan_ms, plain_ms=scan_plain,
         library_ms=scan_lib, bound=bound_ms(2 * nbytes(rows), rows.numel()))
@@ -315,7 +321,7 @@ def profile_calls(calls) -> None:
 # The kernels each wrapper launches, by symbol: the profiler's keys are these
 # names demangled, with template arguments and parameter lists.
 KERNEL_SYMBOLS = {
-    "cdf_scan": ("cdf_scan_kernel",),
+    "cdf_scan": ("cdf_scan_warp", "cdf_scan_cluster", "cdf_scan_block"),
     "forest_delta": ("forest_delta_kernel",),
     "forest_sample": ("forest_sample_kernel",),
     "forest_delta_update": ("forest_delta_update_kernel",),
@@ -1157,13 +1163,15 @@ def serve_path(device, cfg, n_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ,
 
 def check_sampler_call(c: dict) -> tuple[float, int]:
     """One recorded sampler call: its CDF rows within SCAN_ATOL of the plain
-    scan of the same input, its tokens equal to the plain inverse on those
-    same rows. Returns (scan error, index error)."""
+    scan of the same input (run on the CPU copy, whose sequential cumsum
+    errs least: the card's drifts by up to ~2e-6 at 151936), its tokens
+    equal to the plain inverse on those same rows. Returns (scan error,
+    index error)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.cdf_scan import SCAN_ATOL
 
     check("out" in c, "every fused_cdf call followed by sample_rows")
-    e = float((c["cdf"] - ref.ref_cdf_scan(c["x"])).abs().max())
+    e = float((c["cdf"].cpu() - ref.ref_cdf_scan(c["x"].cpu())).abs().max())
     check(e <= SCAN_ATOL, f"sampler CDF rows within SCAN_ATOL ({e})")
     plain = ref.ref_sample_rows(c["cdf"], c["xi"])
     check(torch.equal(c["out"], plain), "sampler tokens == plain inverse on the same rows")
@@ -1182,7 +1190,7 @@ def serve_checks(rec: dict, device) -> float:
         rows += c["cdf"].shape[0]
     print(f"serve checks: {len(rec['calls'])} sampler calls, {rows} rows of "
           f"{rec['calls'][0]['cdf'].shape[1]}: tokens == plain ref_sample_rows on the same "
-          f"card CDF rows; rows vs plain ref_cdf_scan max |err| {scan_err:.3e} "
+          f"card CDF rows; rows vs plain ref_cdf_scan (CPU copy) max |err| {scan_err:.3e} "
           f"(SCAN_ATOL {SCAN_ATOL})", flush=True)
     return float(idx_err)
 
@@ -1300,6 +1308,67 @@ def serve_kernels(device, gen, shapes=SERVE_ROWS_SHAPES) -> dict:
               f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]})", flush=True)
         rows.setdefault("sample_rows", r)  # the first shape: the decode path's
     return rows
+
+
+SCAN_DECODE_SHAPE = (16, 151936)  # the decode path's softmax rows (B3)
+# (B, V, mode) rows whose bits must not depend on the rows beside them: each
+# regime of scan_plan (warp rows, 1-, 4- and 8-block clusters, one block)
+SCAN_STACK_CASES = ((64, 1024, "raw"), (16, 2049, "weights"), (64, 16384, "raw"),
+                    (16, 151936, "softmax"), (16, 300000, "softmax"))
+
+
+def scan_decode_times(device, gen) -> dict:
+    """B3 at the decode shape, bf16 (the engine's logits) and float32: held
+    to the plain version on the CPU copy within SCAN_ATOL, and timed per
+    call (cuda_ms_per_call) beside the plain version on the card,
+    ``torch.cumsum(torch.softmax(x.float(), -1), -1)`` (two library calls:
+    no single one computes the function) and ``torch.cumsum`` alone. The
+    bound reads each logit once (2 or 4 B) and writes each float32 once."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cdf_scan import SCAN_ATOL, cdf_scan
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (torch.randn(SCAN_DECODE_SHAPE, generator=gen, device=device) * 3.0).to(dtype)
+        got = cdf_scan(x)
+        err = float((got.cpu() - ref.ref_cdf_scan(x.cpu())).abs().max())
+        check(err <= SCAN_ATOL, f"cdf_scan at the decode shape {dtype} ({err})")
+        p = torch.softmax(x.float(), -1)
+        r = dict(max_abs_err=err,
+                 ms=cuda_ms_per_call(lambda: cdf_scan(x), 100),
+                 plain_ms=cuda_ms_per_call(lambda: ref.ref_cdf_scan(x), 20),
+                 library_ms=cuda_ms_per_call(
+                     lambda: torch.cumsum(torch.softmax(x.float(), -1), -1), 100),
+                 cumsum_ms=cuda_ms_per_call(lambda: torch.cumsum(p, -1), 100),
+                 bound=bound_ms(nbytes(x) + x.numel() * 4))
+        name = str(dtype).split(".")[-1]
+        print(f"cdf_scan decode {SCAN_DECODE_SHAPE} {name} softmax: max |err| vs plain "
+              f"{err:.3e}; kernel {r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms, "
+              f"softmax+cumsum (two calls) {r['library_ms']:.6f} ms, cumsum alone "
+              f"{r['cumsum_ms']:.6f} ms (per call, queued behind a spin); bound "
+              f"{r['bound'][0]:.6f} ms ({r['bound'][1]})", flush=True)
+        out[name] = r
+    return out
+
+
+def scan_stack_check(device, gen) -> None:
+    """A row's scan bits depend only on the row: the same row alone, in a
+    stack of 7 and in the whole stack, and a second run, are bit-equal."""
+    from repro_torch.kernels.cdf_scan import cdf_scan, scan_plan
+
+    for B, V, mode in SCAN_STACK_CASES:
+        softmax, normalize = mode == "softmax", mode != "raw"
+        x = torch.randn((B, V), generator=gen, device=device) * 3.0
+        x = x.to(torch.bfloat16) if softmax else x.abs()
+        full = cdf_scan(x, softmax=softmax, normalize=normalize).view(torch.int32)
+        again = cdf_scan(x, softmax=softmax, normalize=normalize).view(torch.int32)
+        seven = cdf_scan(x[3:10], softmax=softmax, normalize=normalize).view(torch.int32)
+        alone = cdf_scan(x[5:6], softmax=softmax, normalize=normalize).view(torch.int32)
+        check(torch.equal(full, again), f"cdf_scan repeatable at {(B, V, mode)}")
+        check(torch.equal(seven, full[3:10]) and torch.equal(alone, full[5:6]),
+              f"cdf_scan row bits independent of the stack at {(B, V, mode)}")
+        print(f"cdf_scan {(B, V)} {mode} (plan {tuple(scan_plan(V))}): a row alone, in 7 "
+              f"and in {B}, and a second run, bit-equal", flush=True)
 
 
 def serve_profile(rec: dict, device, cfg) -> None:
@@ -1635,6 +1704,8 @@ def run(build_s: float) -> dict:
     serve_profile(srec, device, cfg)
     del srec
     raw.update(serve_kernels(device, gen))
+    raw["cdf_scan"]["at_decode"] = scan_decode_times(device, gen)
+    scan_stack_check(device, gen)
     raw["sample_rows"]["max_abs_err"] = max(raw["sample_rows"]["max_abs_err"], serve_err)
 
     raw.update(flash_kernels(device, gen, build_s))
@@ -1681,6 +1752,12 @@ def run(build_s: float) -> dict:
             "launches_by_path": {p: counts[p][name] for p in PATHS},
             "device_ms_by_path": {p: path_ms[p][name] for p in PATHS},
         })
+        if "at_decode" in r:
+            kernels[-1]["at_decode"] = {
+                k: {"shape": list(SCAN_DECODE_SHAPE), "ms": d["ms"], "plain_ms": d["plain_ms"],
+                    "library_ms": d["library_ms"], "cumsum_ms": d["cumsum_ms"],
+                    "bound_ms": d["bound"][0], "max_abs_err": d["max_abs_err"]}
+                for k, d in r["at_decode"].items()}
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} launched on its path")
     return {"kernels": kernels}

@@ -40,7 +40,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C entry points: name -> argument types. They return cudaError_t as int,
 # apart from the queries named in _RETURNS.
 _SIGNATURES = {
-    "rt_cdf_scan": (_P, _P, _I, _I, _I, _I, _P),
+    "rt_cdf_scan": (_P, _P, *(_I,) * 10, _P),
     "rt_forest_delta": (_P, _P, _I, _I, _P),
     "rt_forest_sample": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "rt_forest_delta_update": (_P, _P, _P, _P, _I, _I, _P),

@@ -19,9 +19,11 @@ def ref_cdf_scan(
 ) -> torch.Tensor:
     """(B, V) -> (B, V) inclusive row CDFs, float32.
 
-    The same formula as the kernel: each element is normalized first
-    (``exp(x - max) / sum`` or ``x / sum``) and the normalized row is then
-    scanned; ``normalize=False`` (weights only) is the raw row cumsum."""
+    Each element is normalized first (``exp(x - max) / sum`` or ``x / sum``)
+    and the normalized row is then scanned, as in the JAX kernel; the CUDA
+    kernel scans the terms and divides each prefix by the row's total (the
+    same function, within ``SCAN_ATOL``). ``normalize=False`` (weights
+    only) is the raw row cumsum."""
     if softmax and not normalize:
         raise ValueError("normalize=False requires softmax=False (raw cumsum)")
     x = x.to(torch.float32)

@@ -6,8 +6,10 @@ none. The file imports only the port, so it runs on a machine without JAX:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Distances, descents and alias drains are held bit-exact / elementwise;
-scans to ``SCAN_ATOL`` times the row total (the kernel reassociates the
-sum); the alias build bit for bit on dyadic rows (exact partial sums in any
+scans to ``SCAN_ATOL`` times the row total against the plain version (the
+kernel reassociates the sum), bit for bit against ``scan_in_kernel_order``
+in the raw and weights modes, and a row's scan bits alone, in a stack and
+from run to run; the alias build bit for bit on dyadic rows (exact partial sums in any
 order) and to validity and mass conservation on every row; the per-row
 inverse-CDF search elementwise on monotone and dipped rows; flash attention
 to the JAX suite's tolerances (2e-5 in float32, 2e-2 in bfloat16) against
@@ -27,7 +29,12 @@ from repro_torch.core.lds import qmc_point_np
 from repro_torch.kernels import ref
 from repro_torch.kernels.alias_build import alias_build_batched
 from repro_torch.kernels.alias_sample import alias_sample_batched
-from repro_torch.kernels.cdf_scan import SCAN_ATOL, cdf_scan
+from repro_torch.kernels.cdf_scan import (
+    CAPACITY,
+    SCAN_ATOL,
+    cdf_scan,
+    scan_in_kernel_order,
+)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.forest_delta import forest_delta, forest_delta_update
 from repro_torch.kernels.forest_sample import (
@@ -58,17 +65,69 @@ def test_forest_delta_bit_exact(cuda):
         assert torch.equal(got.cpu(), ref.ref_forest_delta(data, m))
 
 
-@pytest.mark.parametrize("mode", ["softmax", "weights", "raw"])
+# Every regime boundary of scan_plan: warp rows (<= 1024), clusters of 1-8
+# blocks up to CAPACITY, one block a row past it.
+_SCAN_LENGTHS = (1, 31, 32, 33, 1024, 1025, 2048, 2049, 16384, 151936, 202048,
+                 CAPACITY, CAPACITY + 1)
+_SCAN_MODES = {"softmax": (True, True), "weights": (False, True), "raw": (False, False)}
+
+
+def _scan_input(B, V, mode, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    if mode == "softmax":
+        return torch.randn(B, V, generator=g, device=device) * 3
+    return torch.rand(B, V, generator=g, device=device)
+
+
+@pytest.mark.parametrize("mode", list(_SCAN_MODES))
 def test_cdf_scan_matches_plain(cuda, mode):
-    g = torch.Generator().manual_seed(1)
-    softmax, normalize = mode == "softmax", mode != "raw"
-    for B, V in ((1, 1), (3, 1000), (64, 16384), (2, 50257)):
-        x = torch.randn(B, V, generator=g) * 3 if softmax else torch.rand(B, V, generator=g)
+    """The plain version runs on the CPU copy: its sequential cumsum errs
+    least (the card's cumsum drifts past 3e-6 at 262144 elements)."""
+    softmax, normalize = _SCAN_MODES[mode]
+    for V in _SCAN_LENGTHS:
+        for B in (1, 16, 64):
+            x = _scan_input(B, V, mode, V + B, "cpu")
+            for dtype in (torch.float32, torch.bfloat16):
+                xd = x.to(dtype)
+                got = cdf_scan(xd.to(cuda), softmax=softmax, normalize=normalize).cpu()
+                want = ref.ref_cdf_scan(xd, softmax=softmax, normalize=normalize)
+                bad = (got - want).abs() > SCAN_ATOL * want[:, -1:].abs()
+                assert not bool(bad.any()), (V, B, dtype)
+
+
+@pytest.mark.parametrize("mode", list(_SCAN_MODES))
+def test_cdf_scan_is_its_plan_order(cuda, mode):
+    """The kernel adds and divides in the order scan_in_kernel_order writes
+    down: bit for bit in the raw and weights modes; softmax's exp is
+    PyTorch's there, so it is held to SCAN_ATOL."""
+    softmax, normalize = _SCAN_MODES[mode]
+    for V in _SCAN_LENGTHS[:-1]:
+        x = _scan_input(16, V, mode, V, cuda)
         for dtype in (torch.float32, torch.bfloat16):
-            xd = x.to(dtype)
-            got = cdf_scan(xd.to(cuda), softmax=softmax, normalize=normalize).cpu()
-            want = ref.ref_cdf_scan(xd, softmax=softmax, normalize=normalize)
-            assert torch.all((got - want).abs() <= SCAN_ATOL * want[:, -1:].abs())
+            got = cdf_scan(x.to(dtype), softmax=softmax, normalize=normalize)
+            want = scan_in_kernel_order(x.to(dtype), softmax=softmax, normalize=normalize)
+            if softmax:
+                assert bool(((got - want).abs() <= SCAN_ATOL).all()), (V, dtype)
+            else:
+                assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (V, dtype)
+
+
+@pytest.mark.parametrize("mode", list(_SCAN_MODES))
+def test_cdf_scan_row_bits_independent_of_stack(cuda, mode):
+    """A row alone, in a stack of 7 and in a stack of 64 gets the same bits,
+    and so does a second run: no sum depends on the other rows or on the
+    order blocks run in."""
+    softmax, normalize = _SCAN_MODES[mode]
+    for V in _SCAN_LENGTHS:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = _scan_input(64, V, mode, 3 * V, cuda).to(dtype)
+            stack64 = cdf_scan(x, softmax=softmax, normalize=normalize).view(torch.int32)
+            again = cdf_scan(x, softmax=softmax, normalize=normalize).view(torch.int32)
+            stack7 = cdf_scan(x[30:37], softmax=softmax, normalize=normalize).view(torch.int32)
+            alone = cdf_scan(x[33:34], softmax=softmax, normalize=normalize).view(torch.int32)
+            assert torch.equal(stack64, again), (V, dtype)
+            assert torch.equal(stack7, stack64[30:37]), (V, dtype)
+            assert torch.equal(alone, stack64[33:34]), (V, dtype)
 
 
 def _tied(hot, hot2):
@@ -376,6 +435,24 @@ def test_pool_on_card_equals_pool_on_cpu(cuda):
     a, b = (p.sample_streams(lanes, slots, s) for p, s in zip((card, cpu), streams))
     assert np.array_equal(a, b)
     assert torch.equal(streams[0].counters.cpu(), streams[1].counters)
+
+
+@pytest.mark.parametrize("n", [300, 100_000, 600_000])
+def test_pool_update_equals_fresh_wave(cuda, n):
+    """A forest tenant re-weighted by update_weights gets the CDF row bits
+    that the same weights get when admitted in a fresh stacked wave beside
+    other tenants of its size class (one chunk-row scan alone against one
+    in a stack: warp rows at n = 300, one-block and four-block clusters at
+    the 2^17 and 2^20 classes)."""
+    rng = np.random.default_rng(n)
+    w0, w1, *others = (rng.random(n) ** 4 + 1e-6 for _ in range(6))
+    pool = ForestPool(device=cuda)
+    h = pool.insert_many([others[0], w0, others[1]])[1]
+    pool.update_weights(h, w1)
+    fresh = ForestPool(device=cuda)
+    g = fresh.insert_many([others[2], others[3], w1])[2]
+    got, want = pool.forest_row(h).cdf, fresh.forest_row(g).cdf
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def _cdf_rows(B, V, seed, cuda):

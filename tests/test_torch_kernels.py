@@ -25,7 +25,8 @@ from repro.kernels.cdf_scan import cdf_scan as jax_cdf_scan
 from repro.kernels.forest_delta import forest_delta as jax_forest_delta
 from repro_torch.core import build_forest
 from repro_torch.interop import forest_from_numpy
-from repro_torch.kernels.cdf_scan import SCAN_ATOL, cdf_scan
+from repro_torch.kernels import cdf_scan as scan_mod
+from repro_torch.kernels.cdf_scan import SCAN_ATOL, cdf_scan, scan_in_kernel_order, scan_plan
 from repro_torch.kernels.forest_delta import forest_delta
 from repro_torch.kernels.forest_sample import forest_sample
 
@@ -64,6 +65,77 @@ def test_cdf_scan_plain_bf16_softmax():
     want = np.asarray(jax_cdf_scan(jnp.asarray(x, jnp.bfloat16), interpret=True))
     got = cdf_scan(torch.from_numpy(x).to(torch.bfloat16)).numpy()
     assert np.all(np.abs(got - want) <= SCAN_ATOL)
+
+
+def test_scan_plan_covers_every_length():
+    """scan_plan is a function of V alone (the same plan from a fresh
+    computation), covers every V from 1 to 2^20 with no gap, keeps a cluster
+    at 8 blocks or fewer, leaves no block of a cluster empty, and keeps a
+    block's shared memory within the H100's 227 KB."""
+    plan = scan_plan.__wrapped__
+    last_regime = scan_mod.WARP
+    for V in range(1, (1 << 20) + 1):
+        p = plan(V)
+        if V % 4099 == 0:
+            assert scan_plan(V) == p
+        assert p.regime >= last_regime, V  # regimes follow V in order
+        last_regime = p.regime
+        if p.regime == scan_mod.WARP:
+            assert V <= scan_mod.SHORT_MAX and p.cluster == 1 and p.smem == 0
+            assert p.slice == p.rounds * scan_mod.ROUND and p.slice - scan_mod.ROUND < V <= p.slice
+            assert p.threads % 32 == 0 and p.threads <= 256
+        elif p.regime == scan_mod.CLUSTER:
+            assert scan_mod.SHORT_MAX < V <= scan_mod.CAPACITY
+            assert 1 <= p.cluster <= 8 and p.slice % 8 == 0
+            assert p.cluster * p.slice >= V > (p.cluster - 1) * p.slice
+            assert p.threads % 32 == 0 and 32 <= p.threads <= 1024
+            assert 1 <= p.rounds <= scan_mod.CTA_ROUNDS
+            assert (p.threads // 32) * p.rounds * scan_mod.ROUND >= p.slice
+            assert p.smem <= 227 * 1024
+        else:
+            assert p.regime == scan_mod.BLOCK and V > scan_mod.CAPACITY
+    assert scan_mod.CAPACITY == 8 * 32768
+
+
+@pytest.mark.parametrize("B,V,mode", [(2, 151936, "softmax"), (64, 16384, "raw")])
+def test_cdf_scan_kernel_order_matches_pallas(B, V, mode):
+    """The kernel's association order (slices, rank-ordered shares) agrees
+    with the JAX kernel in interpret mode within SCAN_ATOL x the row total:
+    the decode path's softmax rows and the main path's chunk rows."""
+    rng = np.random.default_rng(V)
+    softmax, normalize = mode == "softmax", mode != "raw"
+    if softmax:
+        x = rng.normal(0, 3, (B, V)).astype(np.float32)
+    else:
+        x = (rng.random((B, V)) + 1e-3).astype(np.float32)
+    want = np.asarray(jax_cdf_scan(jnp.asarray(x), softmax=softmax,
+                                   normalize=normalize, interpret=True))
+    got = scan_in_kernel_order(torch.from_numpy(x), softmax, normalize).numpy()
+    assert np.all(np.abs(got - want) <= SCAN_ATOL * want[:, -1:])
+
+
+@pytest.mark.parametrize("V", [1, 31, 32, 33, 128, 129, 1024, 1025, 2048, 2049, 16384,
+                               151936, 202048, 8 * 32768])
+@pytest.mark.parametrize("mode", ["softmax", "weights", "raw"])
+def test_cdf_scan_kernel_order_matches_plain(V, mode):
+    """At every regime boundary the kernel's order agrees with the plain
+    version within SCAN_ATOL x the row total, in float32 and bfloat16; a
+    normalized row ends at exactly 1 (its sum is its last prefix)."""
+    rng = np.random.default_rng(V + len(mode))
+    softmax, normalize = mode == "softmax", mode != "raw"
+    x = rng.normal(0, 3, (3, V)) if softmax else rng.random((3, V))
+    for dtype in (torch.float32, torch.bfloat16):
+        xt = torch.from_numpy(x.astype(np.float32)).to(dtype)
+        got = scan_in_kernel_order(xt, softmax, normalize)
+        want = cdf_scan(xt, softmax=softmax, normalize=normalize)
+        assert torch.all((got - want).abs() <= SCAN_ATOL * want[:, -1:].abs())
+        if normalize:
+            assert torch.all(got[:, -1] == 1.0)
+
+
+def test_cdf_scan_kernel_order_rejects_block_rows():
+    with pytest.raises(ValueError):
+        scan_in_kernel_order(torch.zeros(1, scan_mod.CAPACITY + 1))
 
 
 def test_wrappers_reject_bad_inputs():

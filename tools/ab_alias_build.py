@@ -12,13 +12,12 @@ each zero from a random length on); then the update latency of an alias
 tenant at every class: ``ForestPool.update_weights`` with new weights,
 host clock around a synchronized call. Every table is checked valid. Prints
 the card's name and power limit, then one line a measurement: old and new,
-each the mean of its two processes, and old / new.
+each the mean of its two processes (each process's value in
+brackets), and old / new; the runner is ``tools/ab_runner.py``.
 """
 from __future__ import annotations
 
-import json
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -73,32 +72,9 @@ def child(tree: Path) -> dict:
     return out
 
 
-def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--child":
-        print(json.dumps(child(Path(sys.argv[2]).resolve())), flush=True)
-        return 0
-    if len(sys.argv) != 3:
-        print(__doc__, file=sys.stderr)
-        return 2
-    old, new = (Path(a).resolve() for a in sys.argv[1:])
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    runs = {"old": [], "new": []}
-    for which, tree in (("old", old), ("new", new), ("new", new), ("old", old)):
-        done = subprocess.run([sys.executable, __file__, "--child", str(tree)],
-                              capture_output=True, text=True)
-        if done.returncode != 0:
-            print(done.stdout, done.stderr, file=sys.stderr)
-            return 1
-        runs[which].append(json.loads(done.stdout.strip().splitlines()[-1]))
-    print(f"B7 old ({old}) against new ({new}), ms, mean of two processes each "
-          "(builds: cuda_ms_per_call; updates: host clock)", flush=True)
-    for key in runs["old"][0]:
-        o = statistics.fmean(r[key] for r in runs["old"])
-        n = statistics.fmean(r[key] for r in runs["new"])
-        print(f"{key}: old {o:.6f} new {n:.6f} old/new {o / n:.2f}", flush=True)
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    from ab_runner import main  # beside this file, first on sys.path
+
+    sys.exit(main(__file__, child, "B7 (alias_build_batched), ms (builds: cuda_ms_per_call; "
+                  "updates: host clock)",
+                  __doc__))
