@@ -26,10 +26,15 @@ the ignored ``build/`` directory), then:
    CPU build from the same CDF bits, the alias build (bit-exact on dyadic
    tenants, valid and mass-conserving on all), a per-tenant chi-square;
 5. holds each pool kernel against its plain version at 2^22 lanes on the
-   largest class's stacks and times it; times ``alias_build_batched`` on one
+   largest class's stacks and times it (B5, B6 and B8 with two
+   sector-traffic estimates beside the byte bound); holds B6 and B8 at the
+   drain's shape (the last stream drain's lanes of each method over all its
+   classes, one grouped launch) against their plain versions and the
+   drain's draws and times them; times ``alias_build_batched`` on one
    row at every pool class 32..65536 and on a full 65536 class; prints
-   admission times by class,
-   the device idle share and the host profile of one drain;
+   admission times by class, the device idle share of one drain, the
+   device ms, kernel launches and copies of one stream and one
+   host-uniform drain, and the host profile of one drain;
 6. drives the serve path: a ``ServeEngine`` (16 slots, 256-token KV budget)
    over Qwen1.5-0.5B at full width in bfloat16 with seeded random weights,
    serving 32 model-backed requests (prompts of 8 to 64 tokens, 32 new
@@ -66,8 +71,9 @@ the ignored ``build/`` directory), then:
    pool, serve, eval and train: the time from torch.profiler, CUDA activity
    only, by the kernels' symbols, around a second counted run of each path
    at the end, so the first runs' times carry no tracing cost; ``cdf_scan``
-   also carries its decode-shape times as ``at_decode``), then the result
-   line as the last line of standard output.
+   also carries its decode-shape times as ``at_decode``, B6 and B8 their
+   drain-shape times as ``at_drain``), then the result line as the last
+   line of standard output.
 
 Any failed check raises and exits non-zero. Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no result.
@@ -246,7 +252,7 @@ def kernel_phase(device, weights: np.ndarray, m: int, n_draws: int, gen):
         plain_ms=cuda_ms(lambda: ref.ref_forest_sample(*args, xi), 5),
         library_ms=cuda_ms(lambda: torch.searchsorted(cdf1, xi, right=True), 20),
         bound=bound_ms(descent_bytes(RadixForest(*(t[None] for t in f)),
-                                     torch.zeros_like(xi, dtype=torch.int32), xi, 8)))
+                                     torch.zeros_like(xi, dtype=torch.int32), xi, 8)[0]))
     return rows_raw
 
 
@@ -319,7 +325,9 @@ def profile_calls(calls) -> None:
 
 
 # The kernels each wrapper launches, by symbol: the profiler's keys are these
-# names demangled, with template arguments and parameter lists.
+# names demangled, with template arguments and parameter lists. A template's
+# first boolean argument picks the body (B5's and B6's STREAM); later ones
+# (the in-tile sort of B5, B6 and B8) do not.
 KERNEL_SYMBOLS = {
     "cdf_scan": ("cdf_scan_warp", "cdf_scan_cluster", "cdf_scan_block"),
     "forest_delta": ("forest_delta_kernel",),
@@ -337,18 +345,21 @@ PATHS = ("main", "pool", "serve", "eval", "train")
 
 
 def kernel_of(key: str):
-    """The wrapper whose kernel a profiler key names, or None. Boolean
-    template arguments may be demangled as ``true`` or ``(bool)1``."""
+    """The wrapper whose kernel a profiler key names, or None: by the name
+    with its first template argument where that is a boolean, else by the
+    bare name. Booleans may be demangled as ``true`` or ``(bool)1``."""
     rest = key.strip()
     if rest.startswith("void "):
         rest = rest[5:]
     name = rest.split("<")[0].split("(")[0].strip()
+    names = [name]
     if rest[len(name):].startswith("<"):
-        targ = rest[len(name) + 1:].split(">")[0]
+        first = rest[len(name) + 1:].split(">")[0].split(",")[0].strip()
         flag = {"true": "true", "(bool)1": "true", "false": "false", "(bool)0": "false"}
-        name = f"{name}<{flag.get(targ, targ)}>" if targ in flag else name
+        if first in flag:
+            names.insert(0, f"{name}<{flag[first]}>")
     for wrapper, syms in KERNEL_SYMBOLS.items():
-        if name in syms:
+        if any(n in syms for n in names):
             return wrapper
     return None
 
@@ -535,14 +546,26 @@ def plain_drain(pool, handles, xi: torch.Tensor) -> np.ndarray:
     return out
 
 
-def descent_bytes(f, did: torch.Tensor, xi: torch.Tensor, lane_bytes: int) -> int:
+def _sectors(mask: torch.Tensor, size: int) -> int:
+    """32-byte sectors of an array of ``size``-byte entries holding a marked
+    entry."""
+    per = 32 // size
+    pad = torch.zeros((-mask.numel()) % per, dtype=torch.bool, device=mask.device)
+    return int(torch.cat([mask, pad]).view(-1, per).any(1).sum())
+
+
+def descent_bytes(f, did: torch.Tensor, xi: torch.Tensor,
+                  lane_bytes: int) -> tuple[int, int, int]:
     """Bytes a descent over B stacked forests must move on this data:
     ``lane_bytes`` a lane (its inputs read and outputs written once) plus
     each table entry some valid lane reads, at flat row offsets: the guide
     entry of every touched cell; ``fallback`` only in cells holding a tree;
     ``cell_first`` and the bisected ``cdf`` entries only in flagged cells;
     ``cdf`` and one child per level along each descent. One forest is the
-    stack of one row."""
+    stack of one row. Returns that count (the bound's), and two sector
+    estimates with the same lane bytes: 32 B for every table read of every
+    lane (no sector shared between lanes), and 32 B for every distinct
+    sector holding an entry read (every sector shared)."""
     B, m = f.table.shape
     n = f.left.shape[1]
     seen = {k: torch.zeros(t.numel(), dtype=torch.bool, device=xi.device)
@@ -557,6 +580,7 @@ def descent_bytes(f, did: torch.Tensor, xi: torch.Tensor, lane_bytes: int) -> in
     seen["fallback"][(d * m + g)[tree]] = True
     flag = tree & flat["fallback"][d * m + g]
     df, gf, xf = d[flag], g[flag], x[flag]
+    reads = d.numel() + int(tree.sum()) + 34 * df.numel()
     seen["cell_first"][df * (m + 1) + gf] = True
     seen["cell_first"][df * (m + 1) + gf + 1] = True
     lo = flat["cell_first"][df * (m + 1) + gf].long()
@@ -572,14 +596,38 @@ def descent_bytes(f, did: torch.Tensor, xi: torch.Tensor, lane_bytes: int) -> in
         if not bool(live.any()):
             break
         j, x, d = j[live], x[live], d[live]
+        reads += 2 * j.numel()
         seen["cdf"][d * (n + 1) + j] = True
         go_left = x < flat["cdf"][d * (n + 1) + j]
         seen["left"][(d * n + j)[go_left]] = True
         seen["right"][(d * n + j)[~go_left]] = True
         j = torch.where(go_left, flat["left"][d * n + j], flat["right"][d * n + j]).long()
+    lanes = did.numel() * lane_bytes
     table_bytes = sum(int(seen[k].sum()) * f[i].element_size()
                       for i, k in enumerate(f._fields))
-    return table_bytes + did.numel() * lane_bytes
+    sectors = sum(_sectors(seen[k], f[i].element_size()) for i, k in enumerate(f._fields))
+    return lanes + table_bytes, lanes + 32 * reads, lanes + 32 * sectors
+
+
+def alias_bytes(B: int, n: int, did: torch.Tensor, xi: torch.Tensor,
+                lane_bytes: int) -> tuple[int, int, int]:
+    """As :func:`descent_bytes` for an alias drain over one (B, n) stack:
+    ``lane_bytes`` a lane plus 8 B (``q`` and ``alias``) a touched cell;
+    the sector estimates count two 32 B reads a valid lane, or the distinct
+    sectors of the touched cells in each array."""
+    ok = did >= 0
+    cells = torch.clamp((xi[ok] * float(n)).to(torch.int32), 0, n - 1).long()
+    flat = torch.clamp(did[ok].long(), 0, B - 1) * n + cells
+    touched = torch.zeros(B * n, dtype=torch.bool, device=xi.device)
+    touched[flat] = True
+    lanes = did.numel() * lane_bytes
+    return (lanes + int(touched.sum()) * 8, lanes + 64 * int(ok.sum()),
+            lanes + 64 * _sectors(touched, 4))
+
+
+def sector_ms(traffic: tuple[int, int, int]) -> list[float]:
+    """The two sector estimates of a traffic count, as ms at 3.35 TB/s."""
+    return [b / HBM_BYTES_PER_S * 1e3 for b in traffic[1:]]
 
 
 def chi_square_tenant(p: np.ndarray, draws: np.ndarray, bins: int = 16):
@@ -835,12 +883,15 @@ def pool_kernels(rec: dict, device, gen, n_lanes: int) -> dict:
     for co in (True, False):
         check(torch.equal(forest_sample_batched(*f, did, xi, coalesce=co), want),
               f"forest_sample_batched == plain, coalesce={co}")
-    co_ms = cuda_ms(lambda: forest_sample_batched(*f, did, xi, coalesce=True), 10)
+    co_ms = cuda_ms_per_call(lambda: forest_sample_batched(*f, did, xi, coalesce=True), 10)
     rows["forest_sample_batched"] = dict(
         max_abs_err=0.0,
-        ms=cuda_ms(lambda: forest_sample_batched(*f, did, xi, coalesce=False), 20),
+        ms=cuda_ms_per_call(lambda: forest_sample_batched(*f, did, xi, coalesce=False), 20),
+        one_call_ms=cuda_ms(lambda: forest_sample_batched(*f, did, xi, coalesce=False), 20),
         plain_ms=cuda_ms(lambda: ref.ref_forest_sample_batched(*f, did, xi), 3),
-        library_ms=None, bound=bound_ms(descent_bytes(f, did, xi, 12)))
+        library_ms=None)
+    traffic = descent_bytes(f, did, xi, 12)
+    rows["forest_sample_batched"].update(bound=bound_ms(traffic[0]), sector_ms=sector_ms(traffic))
 
     # uint32 counters and offsets as int32 bit views, the streams' own form
     ctr = torch.randint(-2**31, 2**31, (n_lanes,), generator=gen, device=device,
@@ -873,13 +924,20 @@ def pool_kernels(rec: dict, device, gen, n_lanes: int) -> dict:
     print(f"forest_sample_batched on class {fsize} ({len(live)} rows, {n_lanes} lanes): "
           f"coalesced {co_ms:.4f} ms; stream points bit-equal to the twin on "
           f"{len(sel)} drain lanes", flush=True)
-    sco_ms = cuda_ms(lambda: forest_sample_batched_streams(*f, did, ctr, off, coalesce=True), 10)
+    sco_ms = cuda_ms_per_call(
+        lambda: forest_sample_batched_streams(*f, did, ctr, off, coalesce=True), 10)
     rows["forest_sample_batched_streams"] = dict(
         max_abs_err=0.0,
-        ms=cuda_ms(lambda: forest_sample_batched_streams(*f, did, ctr, off, coalesce=False), 20),
+        ms=cuda_ms_per_call(
+            lambda: forest_sample_batched_streams(*f, did, ctr, off, coalesce=False), 20),
+        one_call_ms=cuda_ms(
+            lambda: forest_sample_batched_streams(*f, did, ctr, off, coalesce=False), 20),
         plain_ms=cuda_ms(lambda: ref.ref_forest_sample_batched_streams(*f, did, ctr, off), 3),
-        library_ms=None, bound=bound_ms(descent_bytes(f, did, wx, 20)))
-    print(f"forest_sample_batched_streams: coalesced (the drain's default) "
+        library_ms=None)
+    traffic = descent_bytes(f, did, wx, 20)
+    rows["forest_sample_batched_streams"].update(bound=bound_ms(traffic[0]),
+                                                 sector_ms=sector_ms(traffic))
+    print(f"forest_sample_batched_streams: coalesced "
           f"{sco_ms:.4f} ms, without coalescing "
           f"{rows['forest_sample_batched_streams']['ms']:.4f} ms", flush=True)
 
@@ -922,15 +980,16 @@ def pool_kernels(rec: dict, device, gen, n_lanes: int) -> dict:
         got = alias_sample_batched(ar.table.q, ar.table.alias, did_a, xa, coalesce=co)
         check(np.array_equal(got.cpu().numpy(), want),
               f"alias_sample_batched == np_sample_alias_f32, coalesce={co}")
-    cells = torch.clamp((xa * float(asize)).to(torch.int32), 0, asize - 1).long()
-    touched = int(torch.unique(did_a[did_a >= 0].long() * asize + cells[did_a >= 0]).numel())
+    traffic = alias_bytes(ar.table.q.shape[0], asize, did_a, xa, 12)
     rows["alias_sample_batched"] = dict(
         max_abs_err=0.0,
-        ms=cuda_ms(lambda: alias_sample_batched(ar.table.q, ar.table.alias, did_a, xa,
-                                                coalesce=False), 20),
+        ms=cuda_ms_per_call(lambda: alias_sample_batched(ar.table.q, ar.table.alias, did_a,
+                                                         xa, coalesce=False), 20),
+        one_call_ms=cuda_ms(lambda: alias_sample_batched(ar.table.q, ar.table.alias, did_a,
+                                                         xa, coalesce=False), 20),
         plain_ms=cuda_ms(lambda: ref.ref_alias_sample_batched(ar.table.q, ar.table.alias,
                                                               did_a, xa), 5),
-        library_ms=None, bound=bound_ms(n_lanes * 12 + touched * 8))
+        library_ms=None, bound=bound_ms(traffic[0]), sector_ms=sector_ms(traffic))
 
     R = max(1, min(len(live), n_lanes // fsize))
     old = lower_bounds(f.cdf[live[:R]]).reshape(-1).contiguous()
@@ -953,6 +1012,104 @@ def pool_kernels(rec: dict, device, gen, n_lanes: int) -> dict:
           f"== np_sample_alias_f32; forest_sample_batched(_streams) elementwise == "
           f"plain, coalesce on and off", flush=True)
     return rows
+
+
+def drain_kernels(rec: dict, device) -> dict:
+    """B6 and B8 at the drain's shape: the lanes of the pool run's last
+    stream drain at that drain's pre-pass state, each method's lanes over
+    all its size classes in one grouped launch, as the drain runs them.
+    Held against the grouped plain versions on the same inputs and the
+    drain's own draws, coalesced and not; timed (``cuda_ms_per_call``)
+    beside the plain versions (``cuda_ms``), with the byte bound (lane
+    arrays read and written once, table entries as ``descent_bytes`` and
+    ``alias_bytes`` count them) and its sector estimates. Returns each
+    wrapper's ``at_drain`` record."""
+    import inspect
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.alias_sample import alias_sample_grouped
+    from repro_torch.kernels.forest_sample import forest_sample_grouped
+    from repro_torch.pool import ForestPool
+    from repro_torch.serve.sampler import DeviceQmcStreams
+
+    pool, handles = rec["pool"], rec["handles"]
+    d = rec["drains"][-1]
+    hs = [handles[i] for i in d["lanes"]]
+    ctr, off, xi = DeviceQmcStreams.restore(d["before"], device=device).draw(d["slots"])
+    forest, alias, (gid, row, hi) = pool._drain_plan(hs)
+    fst = [tuple(pool.classes[c].forest) for c in forest]
+    ats = [(pool.alias_classes[c].table.q, pool.alias_classes[c].table.alias) for c in alias]
+    Q, Gf = len(hs), len(forest)
+
+    def run_f(o, co, plain=False):
+        fn = ref.ref_forest_sample_grouped if plain else forest_sample_grouped
+        fn(fst, gid, row, hi, o, counter=ctr, offset_bits=off,
+           **({} if plain else {"coalesce": co}))
+
+    def run_a(o, co, plain=False):
+        if plain:
+            ref.ref_alias_sample_grouped(ats, gid, row, hi, o, Gf, xi)
+        else:
+            alias_sample_grouped(ats, gid, row, hi, o, xi, g0=Gf, coalesce=co)
+
+    want = torch.full((Q,), -7, dtype=torch.int32, device=device)
+    run_f(want, None, plain=True)
+    run_a(want, None, plain=True)
+    check(np.array_equal(want.cpu().numpy(), d["out"]), "grouped plain versions == the drain")
+    for co in (True, False):
+        got = torch.full((Q,), -7, dtype=torch.int32, device=device)
+        run_f(got, co)
+        run_a(got, co)
+        check(torch.equal(got, want), f"grouped B6 and B8 == plain at the drain, coalesce={co}")
+    default = inspect.signature(ForestPool.sample_streams).parameters["coalesce"].default
+    o = torch.empty(Q, dtype=torch.int32, device=device)
+    out = {}
+    for name, run, tabs, traffic in (
+            ("forest_sample_batched_streams", run_f, fst,
+             lambda t, sel: descent_bytes(type(pool.classes[forest[0]].forest)(*t),
+                                          row[sel], xi[sel], 20)),
+            ("alias_sample_batched", run_a, ats,
+             lambda t, sel: alias_bytes(t[0].shape[0], t[0].shape[1], row[sel], xi[sel], 16))):
+        g0 = 0 if name.startswith("forest") else Gf
+        parts = [traffic(t, gid == g0 + g) for g, t in enumerate(tabs)]
+        total = [Q * 4 + sum(p[i] for p in parts) for i in range(3)]  # gid of every lane
+        ms = {co: cuda_ms_per_call(lambda: run(o, co), 20) for co in (True, False)}
+        out[name] = dict(
+            lanes=int(sum((gid == g0 + g).sum() for g in range(len(tabs)))), groups=len(tabs),
+            coalesce=default, ms=ms[default], coalesced_ms=ms[True], uncoalesced_ms=ms[False],
+            plain_ms=cuda_ms(lambda: run(o, None, plain=True), 3),
+            bound_ms=bound_ms(total[0])[0], sector_ms=sector_ms(total), max_abs_err=0.0)
+        r = out[name]
+        print(f"{name} at the drain ({r['lanes']} of {Q} lanes, {r['groups']} classes, one "
+              f"launch): {r['ms']:.6f} ms (coalesced {r['coalesced_ms']:.6f}, not "
+              f"{r['uncoalesced_ms']:.6f}; cuda_ms_per_call), plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.6f} ms (bytes), sector estimates "
+              f"{r['sector_ms'][0]:.6f} / {r['sector_ms'][1]:.6f} ms; == plain versions and "
+              f"the drain's draws", flush=True)
+    return out
+
+
+def drain_device(fn) -> dict:
+    """Device time and operations of one call of ``fn`` (a drain), from
+    torch.profiler: all device ms, kernel launches, copies, and the device
+    ms and launches of B5, B6 and B8 by their symbols."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = device_events(prof)
+    copies = [e for e in ev if e.key.startswith(("Memcpy", "Memset"))]
+    out = dict(device_ms=sum(dev_us(e) for e in ev) / 1e3,
+               launches=sum(e.count for e in ev) - sum(e.count for e in copies),
+               copies=sum(e.count for e in copies))
+    for name in ("forest_sample_batched", "forest_sample_batched_streams",
+                 "alias_sample_batched"):
+        mine = [e for e in ev if kernel_of(e.key) == name]
+        out[f"{name}_ms"] = sum(dev_us(e) for e in mine) / 1e3
+        out[f"{name}_launches"] = sum(e.count for e in mine)
+    return out
 
 
 ALIAS_CLASSES = tuple(1 << k for k in range(POOL_KMIN, POOL_KMAX + 1))
@@ -1017,9 +1174,11 @@ def pool_admission_by_class(rec: dict, device) -> None:
           flush=True)
 
 
-def pool_profile(rec: dict, device, n_draws: int) -> None:
-    """Device busy share of one stream drain and of one forest update, and
-    the host-side split of one stream drain (cProfile)."""
+def pool_profile(rec: dict, device, n_draws: int) -> dict:
+    """Device busy share of one stream drain and of one forest update; the
+    device ms and operations of one stream drain and of one host-uniform
+    drain (returned by label); the host-side split of one stream drain
+    (cProfile)."""
     import cProfile
     import pstats
 
@@ -1032,6 +1191,17 @@ def pool_profile(rec: dict, device, n_draws: int) -> None:
     w = rng.random(handles[i].n) ** 6 + 1e-9
     profile_calls((("pool stream drain", lambda: sampler.sample(hs, slots)),
                    ("pool forest update", lambda: sampler.update(handles[i], w))))
+    xi = rng.random(n_draws).astype(np.float32)
+    drains = {}
+    for label, fn in (("stream", lambda: sampler.sample(hs, slots)),
+                      ("host-uniform", lambda: sampler.pool.sample(hs, xi))):
+        r = drains[label] = drain_device(fn)
+        print(f"pool {label} drain, one call (profiler): device {r['device_ms']:.4f} ms, "
+              f"{r['launches']} kernel launches and {r['copies']} copies; "
+              + ", ".join(f"{k} {r[k + '_ms']:.4f} ms x{r[k + '_launches']}"
+                          for k in ("forest_sample_batched", "forest_sample_batched_streams",
+                                    "alias_sample_batched") if r[k + "_launches"]),
+              flush=True)
     prof = cProfile.Profile()
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1039,14 +1209,15 @@ def pool_profile(rec: dict, device, n_draws: int) -> None:
     wall = time.perf_counter() - t
     stats = pstats.Stats(prof).stats
     parts = []
-    for name in ("_drain_plan", "draw", "forest_sample_batched_streams",
-                 "alias_sample_batched", "_guard_group"):
+    for name in ("_drain_plan", "draw", "forest_sample_grouped",
+                 "alias_sample_grouped", "_guard_group"):
         cum = sum(v[3] for k, v in stats.items() if k[2] == name
                   and k[0].endswith(("ops.py", "arena.py", "sampler.py")))
         if cum:
             parts.append(f"{name} {cum * 1e3:.1f} ms ({cum / wall:.3f})")
     print(f"host profile of one {n_draws}-draw stream drain: wall {wall * 1e3:.1f} ms "
           f"(under cProfile); cumulative: " + ", ".join(parts), flush=True)
+    return drains
 
 
 # ---------------------------------------------------------------------------
@@ -1688,11 +1859,18 @@ def run(build_s: float) -> dict:
 
     counted("main", main_path, device, weights, m, n_draws, gen)
     rec = counted("pool", pool_path, device)
+    stream_drains = POOL_STREAM_DRAINS + 1  # and one host-uniform drain
+    check((counts["pool"]["forest_sample_batched_streams"], counts["pool"]["alias_sample_batched"],
+           counts["pool"]["forest_sample_batched"]) == (stream_drains, stream_drains + 1, 1),
+          "each drain launches one forest kernel and one alias kernel over all its classes")
     pool_checks(rec, device)
     raw.update(pool_kernels(rec, device, gen, POOL_KERNEL_LANES))
+    for name, r in drain_kernels(rec, device).items():
+        raw[name]["at_drain"] = r
     alias_build_times(device)
     pool_admission_by_class(rec, device)
-    pool_profile(rec, device, POOL_DRAWS)
+    raw["forest_sample_batched_streams"]["at_drain"]["stream_drain"] = pool_profile(
+        rec, device, POOL_DRAWS)["stream"]
     del rec
 
     cfg = C.get(SERVE_ARCH)
@@ -1752,6 +1930,11 @@ def run(build_s: float) -> dict:
             "launches_by_path": {p: counts[p][name] for p in PATHS},
             "device_ms_by_path": {p: path_ms[p][name] for p in PATHS},
         })
+        if "at_drain" in r:
+            kernels[-1]["at_drain"] = r["at_drain"]
+        for key in ("sector_ms", "one_call_ms"):
+            if key in r:
+                kernels[-1][key] = r[key]
         if "at_decode" in r:
             kernels[-1]["at_decode"] = {
                 k: {"shape": list(SCAN_DECODE_SHAPE), "ms": d["ms"], "plain_ms": d["plain_ms"],

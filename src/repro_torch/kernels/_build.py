@@ -29,7 +29,7 @@ _BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 _SOURCES = ("cdf_scan.cu", "forest_delta.cu", "forest_sample.cu",
             "forest_sample_batched.cu", "alias_build.cu", "alias_sample.cu",
             "sample_tiled.cu", "flash_attention.cu")
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "lanes.cuh")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,12 +44,12 @@ _SIGNATURES = {
     "rt_forest_delta": (_P, _P, _I, _I, _P),
     "rt_forest_sample": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "rt_forest_delta_update": (_P, _P, _P, _P, _I, _I, _P),
-    "rt_forest_sample_batched": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "rt_forest_sample_grouped": (
+        _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "rt_alias_build": (_P, _P, _P, _P, _I, _I, _P),
     "rt_alias_tiles": (_I,),
     "rt_alias_scratch_words": (_I,),
-    "rt_alias_sample_batched": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "rt_alias_sample_grouped": (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "rt_sample_rows": (_P, _P, _P, _I, _I, _I, _P),
     "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *(_L,) * 12,
                            _I, _I, _F, _P),

@@ -11,25 +11,23 @@ any cell is flagged.
 :func:`forest_sample_batched` is the multi-distribution form (the pool's
 drain): lane ``q`` walks row ``dist_id[q]`` of B stacked forests, and
 :func:`forest_sample_batched_streams` computes each lane's uniform in the
-kernel from its QMC counter and 24-bit rotation. Both launch one templated
-kernel, ``csrc/forest_sample_batched.cu``, and agree elementwise with the
-plain versions in :mod:`repro_torch.kernels.ref`. Lanes with
-``dist_id < 0`` are sentinels: they resolve to 0 without reading a row.
-``coalesce`` runs the pre-pass :func:`_bucket_order` outside the kernel (a
-stable sort of the lanes by row, undone on the way out), as the JAX package
-does outside ``pallas_call``; the result is elementwise identical either
-way.
+kernel from its QMC counter and 24-bit rotation. Both are the one-group
+case of :func:`forest_sample_grouped`, which serves the stacks of many size
+classes in one launch of the templated kernel
+``csrc/forest_sample_batched.cu`` (a drain's forest lanes), clips each
+lane's result to its tenant's range and writes it to the lane's own place.
+All agree elementwise with the plain versions in
+:mod:`repro_torch.kernels.ref`. Lanes with a negative row are sentinels:
+they resolve to 0 without reading a row. ``coalesce`` sorts each block's
+tile of lanes by (group, row, guide cell) inside the kernel; the result is
+elementwise identical either way.
 """
 from __future__ import annotations
 
 import torch
 
-from . import _build
-from .ref import (
-    ref_forest_sample,
-    ref_forest_sample_batched,
-    ref_forest_sample_batched_streams,
-)
+from . import _build, groups
+from .ref import ref_forest_sample, ref_forest_sample_grouped
 
 
 def forest_sample(
@@ -79,19 +77,9 @@ def forest_sample(
 forest_sample.launches = 0
 
 
-def _bucket_order(did: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The coalescing pre-pass: a stable sort of the lanes by row. Returns
-    the gather permutation and its inverse scatter permutation; sentinel
-    lanes (``did < 0``) group in front."""
-    order = torch.sort(did, stable=True).indices
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(order.shape[0], device=order.device)
-    return order, inv
-
-
 def _check_lanes(name, table, dist_id, *lanes) -> torch.Tensor:
     """Check the (Q,) lane inputs against ``table``'s device; returns the
-    dist ids as int32."""
+    dist ids as contiguous int32."""
     if dist_id.dim() != 1 or dist_id.is_floating_point():
         raise ValueError(f"{name}: dist_id must be a 1-D integer tensor")
     for lname, t, dtypes in lanes:
@@ -102,7 +90,7 @@ def _check_lanes(name, table, dist_id, *lanes) -> torch.Tensor:
     for t in (dist_id, *(t for _n, t, _d in lanes)):
         if t.device != table.device:
             raise ValueError(f"{name}: lanes on {t.device}, tables on {table.device}")
-    return dist_id.to(torch.int32)
+    return dist_id.to(torch.int32).contiguous()
 
 
 def _check_stack(name, cdf, table, left, right, cell_first, fallback):
@@ -131,24 +119,15 @@ def forest_sample_batched(
     dist_id: torch.Tensor, xi: torch.Tensor, coalesce: bool = True,
 ) -> torch.Tensor:
     """Mixed-batch Algorithm 2 over B stacked forests: (Q,) dist ids and f32
-    uniforms -> (Q,) int32 row-local interval indices, one launch."""
+    uniforms -> (Q,) int32 row-local indices, one launch (the one-group
+    case of :func:`forest_sample_grouped`)."""
     tabs = _check_stack("forest_sample_batched", cdf, table, left, right,
                         cell_first, fallback)
     did = _check_lanes("forest_sample_batched", table, dist_id,
                        ("xi", xi, (torch.float32,)))
-    inv = None
-    if coalesce:
-        order, inv = _bucket_order(did)
-        did, xi = did[order], xi[order]
-    if not xi.is_cuda:
-        out = ref_forest_sample_batched(*tabs, did, xi)
-    else:
-        out = torch.empty(xi.shape[0], dtype=torch.int32, device=xi.device)
-        if xi.shape[0]:
-            x = xi.contiguous()
-            _launch_batched(tabs, did.contiguous(), x, None, None, out, None)
-            forest_sample_batched.launches += 1
-    return out if inv is None else out[inv]
+    out = torch.empty(did.shape[0], dtype=torch.int32, device=did.device)
+    _grouped([tabs], None, did, None, out, xi.contiguous(), None, None, None, 0, coalesce)
+    return out
 
 
 def forest_sample_batched_streams(
@@ -160,43 +139,77 @@ def forest_sample_batched_streams(
     24-bit rotations (uint32 values as int32 bit views, the form
     ``DeviceQmcStreams`` keeps) -> ``(idx, xi)``, the row-local indices and
     the exact float32 points the kernel drew (bit-equal to
-    ``core.lds.qmc_point_np``)."""
+    ``core.lds.qmc_point_np``); the one-group case of
+    :func:`forest_sample_grouped`."""
     tabs = _check_stack("forest_sample_batched_streams", cdf, table, left,
                         right, cell_first, fallback)
     did = _check_lanes("forest_sample_batched_streams", table, dist_id,
                        ("counter", counter, (torch.int32,)),
                        ("offset_bits", offset_bits, (torch.int32,)))
-    inv = None
-    if coalesce:
-        order, inv = _bucket_order(did)
-        did, counter, offset_bits = did[order], counter[order], offset_bits[order]
-    if not counter.is_cuda:
-        out, xi = ref_forest_sample_batched_streams(*tabs, did, counter, offset_bits)
-    else:
-        Q = counter.shape[0]
-        out = torch.empty(Q, dtype=torch.int32, device=counter.device)
-        xi = torch.empty(Q, dtype=torch.float32, device=counter.device)
-        if Q:
-            _launch_batched(tabs, did.contiguous(), None, counter.contiguous(),
-                            offset_bits.contiguous(), out, xi)
-            forest_sample_batched_streams.launches += 1
-    if inv is not None:
-        out, xi = out[inv], xi[inv]
+    Q = did.shape[0]
+    out = torch.empty(Q, dtype=torch.int32, device=did.device)
+    xi = torch.empty(Q, dtype=torch.float32, device=did.device)
+    _grouped([tabs], None, did, None, out, None, counter.contiguous(),
+             offset_bits.contiguous(), xi, 0, coalesce)
     return out, xi
+
+
+def forest_sample_grouped(
+    stacks, gid, row: torch.Tensor, hi, out: torch.Tensor, *,
+    xi=None, counter=None, offset_bits=None, xi_out=None, g0: int = 0,
+    coalesce: bool = True,
+) -> None:
+    """Algorithm 2 over the forest stacks of several size classes, one
+    launch for every ``GROUP_CAP`` of them: lane ``q`` of local group
+    ``gid[q] - g0`` in ``range(len(stacks))`` descends row ``row[q]`` of
+    that group's stack (``cdf, table, left, right, cell_first, fallback``)
+    at ``xi[q]``, or at the QMC point of ``counter[q]`` and
+    ``offset_bits[q]``, and ``min(idx, hi[q])`` goes to ``out[q]`` in
+    place; other lanes are left as they are. ``gid`` None puts every lane in
+    group ``g0``, ``hi`` None clips nothing, ``row < 0`` is a sentinel lane
+    (0); ``xi_out`` receives the stream points. All lane arrays are (Q,)
+    contiguous int32 (float32 for ``xi``, ``xi_out``). ``coalesce`` sorts
+    each block's tile of lanes in the kernel; results are elementwise
+    identical either way."""
+    stream = counter is not None
+    name = "forest_sample_batched_streams" if stream else "forest_sample_batched"
+    if (xi is None) != stream or (offset_bits is not None) != stream:
+        raise ValueError(f"{name}: pass xi, or counter and offset_bits")
+    tabs = [_check_stack(name, *s) for s in stacks]
+    groups.check_lanes(name, out.device, row.shape[0], gid=gid, row=row, hi=hi, xi=xi,
+                       counter=counter, offset_bits=offset_bits, out=out, xi_out=xi_out)
+    for t in tabs:
+        if t[0].device != out.device:
+            raise ValueError(f"{name}: a stack is on {t[0].device}, the lanes on {out.device}")
+    _grouped(tabs, gid, row, hi, out, xi, counter, offset_bits, xi_out, g0, coalesce)
+
+
+def _grouped(tabs, gid, row, hi, out, xi, counter, offset_bits, xi_out, g0, coalesce):
+    """The launches of :func:`forest_sample_grouped` (or their plain
+    versions, for CPU tensors) over checked, contiguous stacks and lanes."""
+    stream = counter is not None
+    Q = row.shape[0]
+    for c0 in groups.chunks(len(tabs)):
+        chunk = tabs[c0:c0 + groups.GROUP_CAP]
+        if not out.is_cuda:
+            ref_forest_sample_grouped(chunk, gid, row, hi, out, g0 + c0, xi=xi,
+                                      counter=counter, offset_bits=offset_bits,
+                                      xi_out=xi_out)
+            continue
+        if Q == 0:
+            continue
+        desc, flat_bits, end_bit = groups.pack(
+            chunk, [(t[1].shape[0], t[2].shape[1], t[1].shape[1]) for t in chunk])
+        err = _build.library().rt_forest_sample_grouped(
+            desc.ctypes.data, len(chunk), g0 + c0, _ptr(gid), row.data_ptr(), _ptr(hi),
+            _ptr(xi), _ptr(counter), _ptr(offset_bits), out.data_ptr(), _ptr(xi_out), Q,
+            flat_bits, end_bit, int(stream), int(coalesce), _build.stream_of(out))
+        _build.check(err, "forest_sample_batched")
+        (forest_sample_batched_streams if stream else forest_sample_batched).launches += 1
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
-
-
-def _launch_batched(tabs, did, xi, ctr, off, out, xi_out) -> None:
-    B, m = tabs[1].shape
-    n = tabs[2].shape[1]
-    err = _build.library().rt_forest_sample_batched(
-        *(t.data_ptr() for t in tabs), did.data_ptr(), _ptr(xi), _ptr(ctr),
-        _ptr(off), out.data_ptr(), _ptr(xi_out), B, n, m, did.shape[0],
-        int(ctr is not None), _build.stream_of(did))
-    _build.check(err, "forest_sample_batched")
 
 
 forest_sample_batched.launches = 0

@@ -16,6 +16,7 @@ from repro_torch.core.forest import RadixForest
 
 from .alias_build import alias_build_batched as _alias_build_batched
 from .alias_sample import alias_sample_batched as _alias_sample_batched
+from .alias_sample import alias_sample_grouped as _alias_sample_grouped
 from .cdf_scan import cdf_scan
 from .flash_attention import flash_attention as _flash_attention
 from .forest_delta import forest_delta as _forest_delta
@@ -25,6 +26,7 @@ from .forest_sample import forest_sample_batched as _forest_sample_batched
 from .forest_sample import (
     forest_sample_batched_streams as _forest_sample_batched_streams,
 )
+from .forest_sample import forest_sample_grouped as _forest_sample_grouped
 from .sample_tiled import sample_rows as _sample_rows
 
 
@@ -73,7 +75,7 @@ def forest_sample_batched(forest, dist_id: torch.Tensor, xi: torch.Tensor,
                           coalesce: bool = True) -> torch.Tensor:
     """Mixed-batch Algorithm 2 over B stacked forests (one launch). Lanes
     with ``dist_id < 0`` are sentinels resolved to 0; ``coalesce`` toggles
-    the stable sort-by-row pre-pass (elementwise identical either way)."""
+    the kernel's in-tile sort (elementwise identical either way)."""
     return _forest_sample_batched(*_stack(forest), dist_id, xi, coalesce=coalesce)
 
 
@@ -95,3 +97,23 @@ def alias_sample_batched(table, dist_id: torch.Tensor, xi: torch.Tensor,
                          coalesce: bool = True) -> torch.Tensor:
     """Mixed-batch O(1) alias drain over B stacked tables (one launch)."""
     return _alias_sample_batched(table.q, table.alias, dist_id, xi, coalesce=coalesce)
+
+
+def forest_sample_grouped(forests, lanes, out: torch.Tensor, *, xi=None, counter=None,
+                          offset_bits=None, g0: int = 0, coalesce: bool = True) -> None:
+    """The forest lanes of a drain over several size classes: ``lanes`` is
+    ``(gid, row, hi)``, (Q,) int32 each; lane ``q`` of group ``gid[q] - g0``
+    descends row ``row[q]`` of ``forests[gid[q] - g0]`` at ``xi[q]`` (or at
+    its QMC point) and ``min(idx, hi[q])`` goes to ``out[q]``. One launch for
+    every 32 groups."""
+    _forest_sample_grouped([_stack(f) for f in forests], *lanes, out, xi=xi,
+                           counter=counter, offset_bits=offset_bits, g0=g0,
+                           coalesce=coalesce)
+
+
+def alias_sample_grouped(tables, lanes, out: torch.Tensor, xi: torch.Tensor,
+                         g0: int = 0, coalesce: bool = True) -> None:
+    """The alias lanes of a drain over several size classes, as
+    :func:`forest_sample_grouped` over packed ``(q, alias)`` tables."""
+    _alias_sample_grouped([(t.q, t.alias) for t in tables], *lanes, out, xi, g0=g0,
+                          coalesce=coalesce)

@@ -209,6 +209,44 @@ def ref_alias_sample_batched(q, alias, dist_id, xi) -> torch.Tensor:
     return torch.where(valid, out, torch.zeros_like(out)).to(torch.int32)
 
 
+def _group_lanes(gid, group: int, row: torch.Tensor) -> torch.Tensor:
+    """Mask of the lanes of ``group`` (every lane is group 0 when ``gid``
+    is None)."""
+    if gid is None:
+        return torch.full_like(row, group == 0, dtype=torch.bool)
+    return gid == group
+
+
+def ref_forest_sample_grouped(stacks, gid, row, hi, out, g0=0, xi=None, counter=None,
+                              offset_bits=None, xi_out=None) -> None:
+    """One grouped launch: lanes of local group ``gid - g0`` in
+    ``range(len(stacks))`` descend their row of that group's stack as
+    :func:`ref_forest_sample_batched` (at ``xi``, or at the QMC point of
+    ``counter``/``offset_bits``), clipped to ``hi``, into ``out`` in place
+    (the points into ``xi_out``); other lanes are left as they are."""
+    if counter is not None:
+        from repro_torch.core.lds import qmc_point
+
+        xi = qmc_point(counter, offset_bits)
+    for g, stack in enumerate(stacks):
+        sel = _group_lanes(None if gid is None else gid - g0, g, row)
+        idx = _batched_descent(*stack, row[sel], xi[sel])
+        out[sel] = idx if hi is None else torch.minimum(idx, hi[sel])
+        if xi_out is not None:
+            xi_out[sel] = xi[sel]
+
+
+def ref_alias_sample_grouped(tables, gid, row, hi, out, g0=0, xi=None) -> None:
+    """One grouped alias launch: lanes of local group ``gid - g0`` resolve
+    ``xi`` in their row of that group's ``(q, alias)`` stack as
+    :func:`ref_alias_sample_batched`, clipped to ``hi``, into ``out`` in
+    place; other lanes are left as they are."""
+    for g, (q, alias) in enumerate(tables):
+        sel = _group_lanes(None if gid is None else gid - g0, g, row)
+        idx = ref_alias_sample_batched(q, alias, row[sel], xi[sel])
+        out[sel] = idx if hi is None else torch.minimum(idx, hi[sel])
+
+
 # The tile of the JAX kernel's default and of csrc/sample_tiled.cu
 # (RT_SAMPLE_TILE): the plain version is held to that kernel at this tile.
 SAMPLE_TILE = 512

@@ -37,8 +37,10 @@ stacks live on ``device`` (default ``"cuda"``; ``"cpu"`` runs the plain
 versions of the kernels). Admission waves build each (method, size class)
 group with one batched launch (forest groups in waves of at most
 ``WAVE_LEAF_CAP`` leaves, which bounds the flat build's memory), and sync
-once per wave for the fallback flags. A drain launches one kernel per
-touched group and makes one device-to-host copy at the end. Snapshots are
+once per wave for the fallback flags. A drain copies its lanes to the
+device once, launches one kernel for its forest groups and one for its alias
+groups, each clipping its lanes' results in place, and makes one
+device-to-host copy at the end. Snapshots are
 plain numpy dicts in the JAX package's layout, so :meth:`ForestPool.restore`
 takes a snapshot of either package.
 """
@@ -472,23 +474,29 @@ class ForestPool:
     # ------------------------------------------------------------- sampling
 
     def _drain_plan(self, handles):
-        """Validate handles and group draw indices by (method, size class):
-        each group is one batched kernel launch. Returns the groups, each
-        with its lanes' rows and their clip bound ``n - 1``."""
+        """Validate handles and number the drain's (method, size class)
+        groups, forest groups first. Returns the forest sizes, the alias
+        sizes (alias group ``i`` has number ``len(forest) + i``) and the
+        per-lane ``(group, row, clip bound n - 1)`` int32 arrays on the
+        device, from one host-to-device copy."""
         for h in set(handles):  # validate each distinct handle once
             self._check(h)
         ids: dict[tuple[str, int], int] = {}
+        Q = len(handles)
         gid = np.fromiter((ids.setdefault((h.method, h.size_class), len(ids))
-                           for h in handles), np.int64, len(handles))
-        rows = np.fromiter((h.row for h in handles), np.int32, len(handles))
-        hi = np.fromiter((h.n - 1 for h in handles), np.int32, len(handles))
-        plan = []
-        for key, g in ids.items():
-            qs = np.flatnonzero(gid == g)
-            plan.append((key, self._rows(qs),
-                         to_device(rows[qs], self.device),
-                         to_device(hi[qs], self.device)))
-        return plan
+                           for h in handles), np.int32, Q)
+        keys = sorted(ids, key=lambda k: k[0] != "forest")  # stable: first seen
+        renumber = np.empty(len(ids), np.int32)
+        renumber[[ids[k] for k in keys]] = np.arange(len(keys), dtype=np.int32)
+        # rows padded to an even length keep each array 8-byte aligned
+        lanes = np.zeros((3, (Q + 1) & ~1), np.int32)
+        lanes[0, :Q] = renumber[gid]
+        lanes[1, :Q] = np.fromiter((h.row for h in handles), np.int32, Q)
+        lanes[2, :Q] = np.fromiter((h.n - 1 for h in handles), np.int32, Q)
+        dev = to_device(lanes, self.device)[:, :Q]
+        forest = [size for meth, size in keys if meth == "forest"]
+        alias = [size for meth, size in keys if meth == "alias"]
+        return forest, alias, (dev[0], dev[1], dev[2])
 
     def _guard_group(self, meth: str, size: int, rows: torch.Tensor) -> None:
         """Drain-time invariant screen (``guard=True``): the rows a group
@@ -509,61 +517,66 @@ class ForestPool:
         if not bool(ok):
             raise ValueError(f"guard: corrupted {meth} row(s) in size class {size}")
 
-    def sample(self, handles, xi, coalesce: bool = True,
+    def _drain(self, handles, guard: bool, coalesce: bool, alias_xi: torch.Tensor,
+               **forest_inputs) -> np.ndarray:
+        """The drain's launches: the guard screen group by group, then one
+        forest launch over every forest group (at ``forest_inputs``: ``xi``,
+        or ``counter`` and ``offset_bits``) and one alias launch over every
+        alias group (at ``alias_xi``), each writing its lanes' clipped
+        results in place; then the one device-to-host copy."""
+        forest, alias, lanes = self._drain_plan(handles)
+        gid, rows, _hi = lanes
+        if guard:
+            for g, (meth, size) in enumerate([("forest", s) for s in forest]
+                                             + [("alias", s) for s in alias]):
+                self._guard_group(meth, size, rows[gid == g])
+        out = torch.empty(len(handles), dtype=torch.int32, device=self.device)
+        if forest:
+            ops.forest_sample_grouped([self.classes[s].forest for s in forest], lanes, out,
+                                      coalesce=coalesce, **forest_inputs)
+        if alias:
+            ops.alias_sample_grouped([self.alias_classes[s].table for s in alias], lanes,
+                                     out, alias_xi, g0=len(forest), coalesce=coalesce)
+        return out.cpu().numpy()
+
+    def sample(self, handles, xi, coalesce: bool = False,
                guard: bool = False) -> np.ndarray:
         """Bulk mixed-batch drain from host uniforms: draw q resolves
-        ``xi[q]`` in ``handles[q]``'s distribution, with one batched launch
-        per touched (method, size class) group (``forest_sample_batched`` /
-        ``alias_sample_batched``) and one device-to-host copy. Results are
-        clipped to each tenant's true range. Returns (Q,) int32."""
+        ``xi[q]`` in ``handles[q]``'s distribution, with one
+        ``forest_sample_batched`` launch over every forest size class and
+        one ``alias_sample_batched`` launch over every alias size class
+        (each for up to 32 classes), and one device-to-host copy. Results
+        are clipped to each tenant's true range in the kernels. The drain
+        does not sort its lanes by default: at its shape a tile of lanes
+        shares almost no row, and the in-kernel sort costs more than it
+        saves (``coalesce=True`` gives the same draws). Returns (Q,)
+        int32."""
         xi = np.asarray(xi, np.float32)
         if len(handles) != len(xi):
             raise ValueError("handles and xi must align elementwise")
         xi_d = to_device(xi, self.device)
-        out = torch.empty(len(xi), dtype=torch.int32, device=self.device)
-        for (meth, size), sel, did, hi in self._drain_plan(handles):
-            if guard:
-                self._guard_group(meth, size, did)
-            if meth == "alias":
-                idx = ops.alias_sample_batched(
-                    self.alias_classes[size].table, did, xi_d[sel], coalesce=coalesce)
-            else:
-                idx = ops.forest_sample_batched(
-                    self.classes[size].forest, did, xi_d[sel], coalesce=coalesce)
-            out[sel] = torch.minimum(idx, hi)
-        return out.cpu().numpy()
+        return self._drain(handles, guard, coalesce, xi_d, xi=xi_d)
 
-    def sample_streams(self, handles, slots, streams, coalesce: bool = True,
+    def sample_streams(self, handles, slots, streams, coalesce: bool = False,
                        return_xi: bool = False, guard: bool = False):
         """The stream-aware bulk drain: draw q resolves ``slots[q]``'s next
         QMC stream point in ``handles[q]``'s distribution, the stream side
         on the card. ``streams`` follows the ``DeviceQmcStreams`` protocol:
         ``draw(slots)`` ranks duplicate slots, advances the counters on the
         device and returns the per-lane ``(counter, offset_bits, xi)``.
-        Forest groups run one ``forest_sample_batched_streams`` launch that
-        recomputes the points in the kernel; alias groups (legal, but they
-        forfeit the stratification) take the pre-pass points through one
-        ``alias_sample_batched`` launch. With ``return_xi`` also returns the
-        (Q,) float32 points drawn."""
+        Forest lanes take one ``forest_sample_batched_streams`` launch over
+        every forest size class that recomputes the points in the kernel;
+        alias lanes (legal, but they forfeit the stratification) take the
+        pre-pass points through one ``alias_sample_batched`` launch. With
+        ``return_xi`` also returns the (Q,) float32 points drawn."""
         slots = np.asarray(slots)
         if len(handles) != len(slots):
             raise ValueError("handles and slots must align elementwise")
         ctr, off, xi = streams.draw(slots)
-        out = torch.empty(len(slots), dtype=torch.int32, device=self.device)
-        for (meth, size), sel, did, hi in self._drain_plan(handles):
-            if guard:
-                self._guard_group(meth, size, did)
-            if meth == "alias":
-                idx = ops.alias_sample_batched(
-                    self.alias_classes[size].table, did, xi[sel], coalesce=coalesce)
-            else:
-                idx, _ = ops.forest_sample_batched_streams(
-                    self.classes[size].forest, did, ctr[sel], off[sel],
-                    coalesce=coalesce)
-            out[sel] = torch.minimum(idx, hi)
+        out = self._drain(handles, guard, coalesce, xi, counter=ctr, offset_bits=off)
         if return_xi:
-            return out.cpu().numpy(), xi.cpu().numpy()
-        return out.cpu().numpy()
+            return out, xi.cpu().numpy()
+        return out
 
     # ---------------------------------------------------------- inspection
 

@@ -5,7 +5,8 @@ none. The file imports only the port, so it runs on a machine without JAX:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Distances, descents and alias drains are held bit-exact / elementwise;
+Distances, descents and alias drains (single-stack, and grouped over many
+size classes in one launch a method) are held bit-exact / elementwise;
 scans to ``SCAN_ATOL`` times the row total against the plain version (the
 kernel reassociates the sum), bit for bit against ``scan_in_kernel_order``
 in the raw and weights modes, and a row's scan bits alone, in a stack and
@@ -26,9 +27,9 @@ import torch
 from repro_torch.core import build_forest, forest_from_cdf
 from repro_torch.core.alias import build_alias_parallel, np_sample_alias_f32
 from repro_torch.core.lds import qmc_point_np
-from repro_torch.kernels import ref
+from repro_torch.kernels import groups, ref
 from repro_torch.kernels.alias_build import alias_build_batched
-from repro_torch.kernels.alias_sample import alias_sample_batched
+from repro_torch.kernels.alias_sample import alias_sample_batched, alias_sample_grouped
 from repro_torch.kernels.cdf_scan import (
     CAPACITY,
     SCAN_ATOL,
@@ -41,6 +42,7 @@ from repro_torch.kernels.forest_sample import (
     forest_sample,
     forest_sample_batched,
     forest_sample_batched_streams,
+    forest_sample_grouped,
 )
 from repro_torch.kernels.sample_tiled import sample_rows
 from repro_torch.pool import BatchedForest, ForestPool, build_forest_batched
@@ -435,6 +437,106 @@ def test_pool_on_card_equals_pool_on_cpu(cuda):
     a, b = (p.sample_streams(lanes, slots, s) for p, s in zip((card, cpu), streams))
     assert np.array_equal(a, b)
     assert torch.equal(streams[0].counters.cpu(), streams[1].counters)
+
+
+def _mixed_drain(G, Q, seed):
+    """A drain's lanes over 2G groups: forest groups 0..G-1 and alias groups
+    G..2G-1 cycling through classes of 8..4096 cells (three rows each, the
+    last forest row tied, with flagged cells); group 5 gets no lane; rows
+    -1 (sentinel) .. 3 (clamped to the last row); clip bounds below each
+    class's size."""
+    sizes = (8, 64, 512, 4096)
+    forests = [_stack(n, n, 3, n) for n in sizes]
+    assert all(bool(f.fallback.any()) for f in forests)
+    rng = np.random.default_rng(seed)
+    tables = [alias_build_batched(torch.from_numpy(
+        (rng.random((3, n)) ** 4 + 1e-6).astype(np.float32))) for n in sizes]
+    gid = rng.integers(0, 2 * G, Q).astype(np.int32)
+    gid[gid == 5] = 6
+    size = np.asarray(sizes)[gid % G % len(sizes)]
+    lanes = (torch.from_numpy(gid),
+             torch.from_numpy(rng.integers(-1, 4, Q).astype(np.int32)),
+             torch.from_numpy((rng.random(Q) * size).astype(np.int32)))
+    xi = torch.from_numpy(rng.random(Q).astype(np.float32))
+    xi[:3] = torch.tensor([0.0, 1.0, float(np.nextafter(np.float32(1), np.float32(0)))])
+    ctr = torch.from_numpy(rng.integers(-2**31, 2**31, Q).astype(np.int32))
+    off = torch.from_numpy(rng.integers(0, 2**24, Q).astype(np.int32))
+    return ([forests[g % len(sizes)] for g in range(G)],
+            [tables[g % len(sizes)] for g in range(G)], lanes, xi, ctr, off)
+
+
+def _grouped_drain(forests, tables, lanes, xi, ctr, off, dev, coalesce):
+    """One B5 (B6 when ``ctr`` is given) and one B8 launch set over the
+    drain's lanes; returns the drain's results and the stream points."""
+    G = len(forests)
+    mv = lambda ts: tuple(t.to(dev) for t in ts)  # noqa: E731
+    lanes = mv(lanes)
+    out = torch.full((lanes[0].shape[0],), -7, dtype=torch.int32, device=dev)
+    pts = torch.full(out.shape, -1.0, device=dev)
+    kw = (dict(xi=xi.to(dev)) if ctr is None else
+          dict(counter=ctr.to(dev), offset_bits=off.to(dev), xi_out=pts))
+    forest_sample_grouped([mv(f) for f in forests], *lanes, out, coalesce=coalesce, **kw)
+    alias_sample_grouped([mv(t) for t in tables], *lanes, out, xi.to(dev), g0=G,
+                         coalesce=coalesce)
+    return out.cpu(), pts.cpu()
+
+
+@pytest.mark.parametrize("cap", [3, 32])
+def test_grouped_drain_kernels_match_plain(cuda, cap, monkeypatch):
+    """B5, B6 and B8 over 40 + 40 groups of four classes (8..4096 cells)
+    with tied rows, sentinel lanes and an empty group, in one launch per
+    method and in 14 (``GROUP_CAP`` 3), coalesced or not: elementwise
+    equal to the grouped plain versions, B6's points bit-equal to
+    ``qmc_point_np``, every lane written once."""
+    monkeypatch.setattr(groups, "GROUP_CAP", cap)
+    G = 40
+    forests, tables, lanes, xi, ctr, off = _mixed_drain(G, 60_000, cap)
+    launches = -(-G // cap)
+    for stream in (False, True):
+        c = (ctr, off) if stream else (None, None)
+        want, wpts = _grouped_drain(forests, tables, lanes, xi, *c, "cpu", True)
+        assert bool((want != -7).all())
+        for co in (True, False):
+            body = forest_sample_batched_streams if stream else forest_sample_batched
+            b0, a0 = body.launches, alias_sample_batched.launches
+            got, pts = _grouped_drain(forests, tables, lanes, xi, *c, cuda, co)
+            torch.cuda.synchronize()
+            assert (body.launches - b0, alias_sample_batched.launches - a0) == (
+                launches, launches)
+            assert torch.equal(got, want), (stream, co)
+            if stream:
+                fl = lanes[0] < G
+                assert torch.equal(pts.view(torch.int32), wpts.view(torch.int32))
+                want_pts = qmc_point_np(ctr.numpy().view(np.uint32)[fl.numpy()],
+                                        off.numpy().view(np.uint32)[fl.numpy()])
+                assert np.array_equal(pts[fl].numpy().view(np.uint32), want_pts.view(np.uint32))
+
+
+def test_stream_drain_launches_each_method_once(cuda):
+    """A stream drain over twelve classes of both methods adds exactly one
+    launch to B6 and one to B8, a host-uniform drain one to B5 and one to
+    B8; both equal the same pool's drains on the CPU."""
+    rng = np.random.default_rng(17)
+    sizes = [int(n) for n in rng.integers(5, 3000, 48)]
+    tenants = [rng.random(n) ** 3 + 1e-4 for n in sizes]
+    methods = ["forest" if i % 2 == 0 else "alias" for i in range(len(sizes))]
+    card = ForestPool(device=cuda)
+    hs = card.insert_many(tenants, method=methods)
+    assert len(card.classes) >= 4 and len(card.alias_classes) >= 4
+    cpu = ForestPool.restore(card.snapshot(), device="cpu")
+    lanes = [hs[i] for i in rng.integers(0, len(hs), 30_001)]
+    streams = [DeviceQmcStreams(256, seed=3, device=d) for d in (cuda, "cpu")]
+    slots = rng.integers(0, 256, len(lanes))
+    bodies = (forest_sample_batched, forest_sample_batched_streams, alias_sample_batched)
+    before = [b.launches for b in bodies]
+    got = card.sample_streams(lanes, slots, streams[0])
+    assert [b.launches - c for b, c in zip(bodies, before)] == [0, 1, 1]
+    assert np.array_equal(got, cpu.sample_streams(lanes, slots, streams[1]))
+    xi = rng.random(len(lanes)).astype(np.float32)
+    before = [b.launches for b in bodies]
+    got = card.sample(lanes, xi)
+    assert [b.launches - c for b, c in zip(bodies, before)] == [1, 0, 1]
+    assert np.array_equal(got, cpu.sample(lanes, xi))
 
 
 @pytest.mark.parametrize("n", [300, 100_000, 600_000])

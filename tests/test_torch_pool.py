@@ -14,11 +14,15 @@ import torch
 from repro.core.cdf import build_cdf as jax_build_cdf
 from repro.core.cdf import normalize_weights
 from repro.kernels import ref as jax_ref
+from repro.kernels.alias_sample import alias_sample_batched as jax_alias_sample_batched
+from repro.kernels.forest_sample import forest_sample_batched as jax_forest_sample_batched
 from repro.pool import build_forest_batched_from_cdf as jax_batched_from_cdf
 from repro_torch.core import build_forest, forest_to_numpy, validate_forest
 from repro_torch.core.sample import sample_forest
-from repro_torch.kernels import ops
-from repro_torch.kernels.forest_sample import forest_sample_batched
+from repro_torch.kernels import groups, ops
+from repro_torch.kernels.alias_build import alias_build_batched
+from repro_torch.kernels.alias_sample import alias_sample_grouped
+from repro_torch.kernels.forest_sample import forest_sample_batched, forest_sample_grouped
 from repro_torch.pool import (
     BatchedForest,
     ForestPool,
@@ -26,6 +30,7 @@ from repro_torch.pool import (
     build_forest_batched_from_cdf,
 )
 from repro_torch.robust.errors import StaleHandleError
+from repro_torch.serve.sampler import DeviceQmcStreams
 
 # Start JAX's backend at collection (see tests/test_torch_cdf_forest.py).
 jax.devices()
@@ -271,3 +276,146 @@ def test_pool_snapshot_roundtrip_on_port():
     assert np.array_equal(back.sample(lanes, xi), pool.sample(lanes, xi))
     assert forest_to_numpy(back.forest_row(hs[0]))["cdf"].tolist() == \
         forest_to_numpy(pool.forest_row(hs[0]))["cdf"].tolist()
+
+
+def _mixed_classes(rng):
+    """Forest stacks of three classes (8, 32, 128 leaves; the last row of
+    each tied, with flagged cells) and alias stacks of two (16, 64), built
+    from JAX's CDF bits; and a drain's lanes over them: forest groups 0-2,
+    alias groups 3-4, rows -1 (sentinel) .. B (clamped), clip bounds below
+    each class's size."""
+    forests, tables = [], []
+    for n, B in ((8, 2), (32, 3), (128, 2)):
+        W = np.stack([normalize_weights(_family_weights("powerlaw", n, rng)) for _ in range(B)])
+        W[-1] = _tied(n)
+        cdf = np.asarray(_jax_cdf_rows(jnp.asarray(W, jnp.float32)))
+        forests.append(build_forest_batched_from_cdf(torch.from_numpy(cdf), n, device="cpu"))
+    for n in (16, 64):
+        W = (rng.random((3, n)) ** 4 + 1e-6).astype(np.float32)
+        tables.append(alias_build_batched(torch.from_numpy(W)))
+    sizes = [f.n for f in forests] + [t[0].shape[1] for t in tables]
+    rows = [f.batch for f in forests] + [t[0].shape[0] for t in tables]
+    Q = 700
+    gid = rng.integers(0, len(sizes), Q).astype(np.int32)
+    row = np.asarray([rng.integers(-1, rows[g] + 1) for g in gid], np.int32)
+    hi = np.asarray([rng.integers(0, sizes[g]) for g in gid], np.int32)
+    return forests, tables, gid, row, hi
+
+
+def _jax_groups_clipped(forests, tables, gid, row, hi, xi):
+    """The JAX package's kernels (interpret mode) group by group, each
+    result clipped to its lane's bound as ``repro.pool.ForestPool`` clips
+    a drain."""
+    want = np.full(len(gid), -7, np.int32)
+    for g, f in enumerate(forests):
+        sel = gid == g
+        jf = [jnp.asarray(t.numpy()) for t in f]
+        idx = jax_forest_sample_batched(jf[0], jf[1], jf[2], jf[3], jnp.asarray(row[sel]),
+                                        jnp.asarray(xi[sel]), jf[4], jf[5], interpret=True)
+        want[sel] = np.minimum(np.asarray(idx), hi[sel])
+    for a, t in enumerate(tables):
+        sel = gid == len(forests) + a
+        idx = jax_alias_sample_batched(jnp.asarray(t[0].numpy()), jnp.asarray(t[1].numpy()),
+                                       jnp.asarray(row[sel]), jnp.asarray(xi[sel]),
+                                       interpret=True)
+        want[sel] = np.minimum(np.asarray(idx), hi[sel])
+    return want
+
+
+def _grouped_cpu(forests, tables, lanes, xi, coalesce):
+    out = torch.full((lanes[0].shape[0],), -7, dtype=torch.int32)
+    forest_sample_grouped([tuple(f) for f in forests], *lanes, out, xi=xi, coalesce=coalesce)
+    alias_sample_grouped(list(tables), *lanes, out, xi, g0=len(forests), coalesce=coalesce)
+    return out.numpy()
+
+
+def test_grouped_plain_matches_jax_kernels_clipped():
+    """One B5 launch over three forest classes and one B8 launch over two
+    alias classes (the grouped plain versions) equal the JAX package's
+    forest_sample_batched and alias_sample_batched run group by group and
+    clipped per lane, with tied rows, sentinel and out-of-range rows;
+    coalesced or not."""
+    rng = np.random.default_rng(41)
+    forests, tables, gid, row, hi = _mixed_classes(rng)
+    xi = rng.random(len(gid)).astype(np.float32)
+    xi[:3] = [0.0, np.nextafter(np.float32(1), np.float32(0)), 0.5]
+    want = _jax_groups_clipped(forests, tables, gid, row, hi, xi)
+    lanes = tuple(torch.from_numpy(a) for a in (gid, row, hi))
+    for co in (True, False):
+        assert np.array_equal(_grouped_cpu(forests, tables, lanes, torch.from_numpy(xi), co), want)
+
+
+@pytest.mark.parametrize("cap", [1, 2, 3])
+def test_group_cap_splits_launches_with_equal_results(cap, monkeypatch):
+    """More groups than a launch holds: the wrappers launch once a
+    ``GROUP_CAP`` groups, each with its own first group, and the drain is
+    unchanged; a pool drain over five classes of each method too."""
+    rng = np.random.default_rng(43)
+    forests, tables, gid, row, hi = _mixed_classes(rng)
+    xi = torch.from_numpy(rng.random(len(gid)).astype(np.float32))
+    lanes = tuple(torch.from_numpy(a) for a in (gid, row, hi))
+    want = _grouped_cpu(forests, tables, lanes, xi, False)
+    pool = ForestPool(device="cpu")
+    hs = pool.insert_many([rng.random(n) + 1e-3 for n in (5, 12, 40, 70, 200) * 2],
+                          method=["forest"] * 5 + ["alias"] * 5)
+    drain = [hs[i] for i in rng.integers(0, len(hs), 500)]
+    pxi = rng.random(len(drain)).astype(np.float32)
+    pool_want = pool.sample(drain, pxi)
+    monkeypatch.setattr(groups, "GROUP_CAP", cap)
+    assert np.array_equal(_grouped_cpu(forests, tables, lanes, xi, False), want)
+    assert np.array_equal(pool.sample(drain, pxi), pool_want)
+
+
+def test_group_descriptors_pack_the_live_stacks():
+    """Each record holds the stack's base pointers and its (B, n, m); the
+    sort key's bits cover every group's flat cell offsets and the group
+    number, with the all-ones key left over; a stack that grows is packed
+    at its new place."""
+    rng = np.random.default_rng(47)
+    forests, tables, *_ = _mixed_classes(rng)
+    dims = [(f.batch, f.n, f.m) for f in forests]
+    desc, flat_bits, end_bit = groups.pack([tuple(f) for f in forests], dims)
+    assert desc.dtype.itemsize == 64 and len(desc) == 3
+    for rec, f, d in zip(desc, forests, dims):
+        assert list(rec["ptr"]) == [t.data_ptr() for t in f]
+        assert (rec["B"], rec["n"], rec["m"]) == d
+    assert flat_bits == max(int(B * m - 1).bit_length() for B, _n, m in dims)
+    largest = (2 << flat_bits) | ((1 << flat_bits) - 1)  # group 2's last cell
+    assert end_bit == flat_bits + 2 and largest < (1 << end_bit) - 1
+    desc, _, _ = groups.pack([tuple(tables[0])], [(3, 16, 16)])
+    assert list(desc[0]["ptr"][:2]) == [t.data_ptr() for t in tables[0]]
+    assert not desc[0]["ptr"][2:].any()
+    pool = ForestPool(init_rows=1, device="cpu")
+    h = pool.insert(rng.random(12) + 1e-3)
+    before = pool.classes[16].forest.cdf.data_ptr()
+    pool.insert(rng.random(12) + 1e-3)  # the class grows: its stacks move
+    f = pool.classes[16].forest
+    assert f.cdf.data_ptr() != before
+    desc, _, _ = groups.pack([tuple(f)], [(f.batch, f.n, f.m)])
+    assert desc[0]["ptr"][0] == f.cdf.data_ptr()
+    assert 0 <= pool.sample([h], [0.5])[0] < 12
+    with pytest.raises(ValueError):
+        groups.pack([tuple(f)] * (groups.GROUP_CAP + 1), [(f.batch, f.n, f.m)] * 33)
+
+
+def test_drain_guard_screens_each_group_before_the_launch():
+    """``guard=True`` leaves a clean drain unchanged and raises, before any
+    launch, on a corrupted forest row or alias row of a touched class."""
+    rng = np.random.default_rng(59)
+    pool = ForestPool(device="cpu")
+    hs = pool.insert_many([rng.random(n) + 1e-3 for n in (6, 40, 9, 70)],
+                          method=["forest", "forest", "alias", "alias"])
+    lanes = [hs[i] for i in rng.integers(0, 4, 200)]
+    xi = rng.random(200).astype(np.float32)
+    assert np.array_equal(pool.sample(lanes, xi, guard=True), pool.sample(lanes, xi))
+    for h, field, bad in ((hs[1], "cdf", float("nan")), (hs[3], "q", 2.0)):
+        stack = (pool.classes[h.size_class].forest if h.method == "forest"
+                 else pool.alias_classes[h.size_class].table)
+        getattr(stack, field)[h.row, 1] = bad
+        with pytest.raises(ValueError, match=f"corrupted {h.method}"):
+            pool.sample(lanes, xi, guard=True)
+        streams = DeviceQmcStreams(8, seed=0, device="cpu")
+        with pytest.raises(ValueError, match=f"corrupted {h.method}"):
+            pool.sample_streams(lanes, rng.integers(0, 8, 200), streams, guard=True)
+        getattr(stack, field)[h.row, 1] = 0.0 if field == "q" else 0.5
+        pool.update_weights(h, rng.random(h.n) + 1e-3)

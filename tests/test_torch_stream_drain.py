@@ -18,11 +18,20 @@ from repro.core.cdf import build_cdf as jax_build_cdf
 from repro.core.cdf import normalize_weights
 from repro.core.lds import qmc_offset_bits_np, qmc_point_np
 from repro.kernels import ref as jax_ref
+from repro.kernels.alias_sample import alias_sample_batched as jax_alias_sample_batched
+from repro.kernels.forest_sample import (
+    forest_sample_batched_streams as jax_forest_sample_batched_streams,
+)
 from repro.serve.sampler import DeviceQmcStreams as JaxDeviceQmcStreams
 from repro.serve.sampler import PooledForestSampler as JaxPooledSampler
 from repro.serve.sampler import QmcStreams as JaxQmcStreams
 from repro_torch.interop import handle_from_numpy
-from repro_torch.kernels.forest_sample import forest_sample_batched_streams
+from repro_torch.kernels.alias_build import alias_build_batched
+from repro_torch.kernels.alias_sample import alias_sample_grouped
+from repro_torch.kernels.forest_sample import (
+    forest_sample_batched_streams,
+    forest_sample_grouped,
+)
 from repro_torch.pool import BatchedForest, build_forest_batched_from_cdf
 from repro_torch.serve.sampler import (
     DeviceQmcStreams,
@@ -127,6 +136,66 @@ def test_stream_drain_plain_matches_jax_ref(B, n, m):
         assert np.array_equal(idx.numpy(), np.asarray(want_i)), co
     with pytest.raises(ValueError, match="counter"):
         forest_sample_batched_streams(*pf, torch.from_numpy(did), c.to(torch.int64), o)
+
+
+@pytest.mark.parametrize("coalesce", [True, False])
+def test_grouped_stream_drain_plain_matches_jax_kernels_clipped(coalesce):
+    """A stream drain's lanes over three forest classes (one B6 launch,
+    points made from the lanes' counters and rotations) and two alias
+    classes (one B8 launch on the pre-pass points), by the grouped plain
+    versions: equal to the JAX package's forest_sample_batched_streams and
+    alias_sample_batched (interpret mode) group by group, clipped per lane
+    as repro.pool.ForestPool clips a drain; the stream points bit-equal to
+    qmc_point_np; sentinel and out-of-range rows included."""
+    rng = np.random.default_rng(53)
+    forests = []
+    for n, B in ((8, 2), (24, 3), (300, 2)):
+        W = np.stack([normalize_weights(rng.random(n) ** 4 + 1e-9) for _ in range(B)])
+        W[-1] = 0.0
+        W[-1, n // 2] = 1.0  # tied row: fallback cells
+        cdf = np.stack([np.asarray(jax_build_cdf(jnp.asarray(w, jnp.float32))) for w in W])
+        forests.append(build_forest_batched_from_cdf(torch.from_numpy(cdf), n, device="cpu"))
+    tables = [alias_build_batched(torch.from_numpy((rng.random((3, n)) ** 4 + 1e-6)
+                                                   .astype(np.float32))) for n in (16, 64)]
+    sizes = [f.n for f in forests] + [t[0].shape[1] for t in tables]
+    rows = [f.batch for f in forests] + [t[0].shape[0] for t in tables]
+    Q = 600
+    gid = rng.integers(0, len(sizes), Q).astype(np.int32)
+    row = np.asarray([rng.integers(-1, rows[g] + 1) for g in gid], np.int32)
+    hi = np.asarray([rng.integers(0, sizes[g]) for g in gid], np.int32)
+    ctr = rng.integers(0, 2**32, Q, dtype=np.uint64).astype(np.uint32)
+    off = qmc_offset_bits_np(rng.random(Q))
+    pts = qmc_point_np(ctr, off)  # the pre-pass points the alias lanes take
+    want = np.full(Q, -7, np.int32)
+    want_pts = np.full(Q, -1.0, np.float32)
+    for g, f in enumerate(forests):
+        sel = gid == g
+        jf = [jnp.asarray(t.numpy()) for t in f]
+        idx, x = jax_forest_sample_batched_streams(
+            jf[0], jf[1], jf[2], jf[3], jnp.asarray(row[sel]), jnp.asarray(ctr[sel]),
+            jnp.asarray(off[sel]), jf[4], jf[5], interpret=True)
+        want[sel] = np.minimum(np.asarray(idx), hi[sel])
+        want_pts[sel] = np.asarray(x)
+    for a, t in enumerate(tables):
+        sel = gid == len(forests) + a
+        idx = jax_alias_sample_batched(jnp.asarray(t[0].numpy()), jnp.asarray(t[1].numpy()),
+                                       jnp.asarray(row[sel]), jnp.asarray(pts[sel]),
+                                       interpret=True)
+        want[sel] = np.minimum(np.asarray(idx), hi[sel])
+    lanes = tuple(torch.from_numpy(a) for a in (gid, row, hi))
+    out = torch.full((Q,), -7, dtype=torch.int32)
+    got_pts = torch.full((Q,), -1.0)
+    forest_sample_grouped([tuple(f) for f in forests], *lanes, out,
+                          counter=torch.from_numpy(ctr.view(np.int32)),
+                          offset_bits=torch.from_numpy(off.view(np.int32)), xi_out=got_pts,
+                          coalesce=coalesce)
+    alias_sample_grouped(list(tables), *lanes, out, torch.from_numpy(pts), g0=len(forests),
+                         coalesce=coalesce)
+    assert np.array_equal(out.numpy(), want)
+    fl = gid < len(forests)
+    assert np.array_equal(got_pts.numpy()[fl].view(np.uint32), want_pts[fl].view(np.uint32))
+    assert np.array_equal(got_pts.numpy()[fl].view(np.uint32), pts[fl].view(np.uint32))
+    assert bool((got_pts[torch.from_numpy(~fl)] == -1.0).all())
 
 
 def _tenants(rng):
