@@ -8,7 +8,12 @@ the ignored ``build/`` directory), then:
 1. prints the card's name and power limit and the kernel build time;
 2. holds every kernel of the single-distribution path against its plain
    PyTorch version on the card, at that path's shapes, and times kernel,
-   plain version and the nearest single PyTorch call with CUDA events;
+   plain version and the nearest single PyTorch call with CUDA events, per
+   call (``cuda_ms_per_call``) and, for B1 and B2, also one call; B1
+   (``forest_sample``) with both ``use_fallback`` values on the pack the
+   samplers make once per forest (``forest_pack``, held bit for bit to its
+   plain version and timed, and its time in the construction stage line),
+   with sector-traffic estimates for the six arrays and for that layout;
 3. drives that path at full width: the ``env_map_2d(1024, 1024)`` weights
    (n = 2^20 intervals, m = 2^20 guide cells) through ``build_forest`` and
    2^24 draws through ``sample_forest``, checks the card's forest against
@@ -161,14 +166,50 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def degenerate_forests(device) -> dict:
+    """The three degenerate forests B1 is held on: a spike at zero and
+    interior ties (tied spines, flagged cells) and a deep dyadic chain."""
+    from repro_torch.core.forest import build_forest
+
+    tied0 = np.zeros(300, np.float32)
+    tied0[150] = 1.2
+    tied1 = np.zeros(300, np.float32)
+    tied1[0], tied1[299] = 1.2, 0.8
+    chain = np.asarray([2.0 ** -(i + 1) for i in range(24)] + [2.0 ** -24], np.float32)
+    return {name: build_forest(wd, md, device=device)
+            for name, wd, md in (("spike_at_zero", tied0, 16), ("interior_ties", tied1, 16),
+                                 ("dyadic_chain", chain, 1))}
+
+
+def packed_descent_reads(f, xi: torch.Tensor) -> int:
+    """32-byte sector reads of B1's descent over its packed layout on this
+    data, no sector shared between lanes: one a lane for the guide entry
+    (the flag folded in), 34 more a flagged lane (``cell_first`` twice, 32
+    bisection steps), one a level for the node record."""
+    from repro_torch.core.sample import _bisect, _guide_cell
+
+    g = _guide_cell(xi, f.m)
+    j = f.table[g].long()
+    flag = (j >= 0) & f.fallback[g]
+    reads = xi.numel() + 34 * int(flag.sum())
+    j = torch.where(flag, ~_bisect(f.cdf, xi, f.cell_first[g], f.cell_first[g + 1], 32), j)
+    left, right = f.left.long(), f.right.long()
+    while bool((j >= 0).any()):
+        live = j >= 0
+        reads += int(live.sum())
+        jj = torch.clamp(j, 0, f.n - 1)
+        j = torch.where(live, torch.where(xi < f.cdf[jj], left[jj], right[jj]), j)
+    return reads
+
+
 def kernel_phase(device, weights: np.ndarray, m: int, n_draws: int, gen):
     """Each kernel against its plain version at the main path's shapes."""
     from repro_torch.core import cdf as C
-    from repro_torch.core.forest import RadixForest, build_forest, forest_from_cdf
+    from repro_torch.core.forest import RadixForest, forest_from_cdf
     from repro_torch.kernels import ref
     from repro_torch.kernels.cdf_scan import SCAN_ATOL, cdf_scan
     from repro_torch.kernels.forest_delta import forest_delta
-    from repro_torch.kernels.forest_sample import forest_sample
+    from repro_torch.kernels.forest_sample import forest_pack, forest_sample
 
     rows_raw = {}
     w = torch.as_tensor(weights, dtype=torch.float32, device=device)
@@ -213,29 +254,30 @@ def kernel_phase(device, weights: np.ndarray, m: int, n_draws: int, gen):
     # the kernel writes their int64 form (8 B), which the build compares.
     rows_raw["forest_delta"] = dict(
         max_abs_err=float((got - want).abs().max()),
-        ms=cuda_ms(lambda: forest_delta(data, m), 20),
-        plain_ms=cuda_ms(lambda: ref.ref_forest_delta(data, m), 20),
+        ms=cuda_ms_per_call(lambda: forest_delta(data, m), 100),
+        one_call_ms=cuda_ms(lambda: forest_delta(data, m), 20),
+        plain_ms=cuda_ms_per_call(lambda: ref.ref_forest_delta(data, m), 20),
         library_ms=None,
         bound=bound_ms(nbytes(data) + got.numel() * 4))
-    print(f"forest_delta n={data.numel()}: bit-exact", flush=True)
+    print(f"forest_delta n={data.numel()}: bit-exact; {rows_raw['forest_delta']['ms']:.6f} ms "
+          f"per call, {rows_raw['forest_delta']['one_call_ms']:.6f} one call", flush=True)
 
     # forest_sample: elementwise on the full-width forest and three
-    # degenerate forests (tied spines, deep dyadic chain).
+    # degenerate forests (tied spines, deep dyadic chain), the pack made once
+    # as the samplers make it; forest_pack bit-exact.
     f = forest_from_cdf(cdf, m, device=device)
+    pk = forest_pack(f.cdf, f.table, f.left, f.right, f.fallback)
+    pk_want = ref.ref_forest_pack(f.cdf, f.table, f.left, f.right, f.fallback)
+    check(all(torch.equal(a, b) for a, b in zip(pk, pk_want)), "forest_pack bit-exact")
     xi = torch.rand(n_draws, generator=gen, device=device)
     args = (f.cdf, f.table, f.left, f.right, f.cell_first, f.fallback)
-    got = forest_sample(*args, xi)
-    want = ref.ref_forest_sample(*args, xi)
-    check(torch.equal(got, want), "forest_sample full width")
-    err = float((got.long() - want.long()).abs().max())
-    tied0 = np.zeros(300, np.float32)
-    tied0[150] = 1.2
-    tied1 = np.zeros(300, np.float32)
-    tied1[0], tied1[299] = 1.2, 0.8
-    chain = np.asarray([2.0 ** -(i + 1) for i in range(24)] + [2.0 ** -24], np.float32)
-    for name, wd, md in (("spike_at_zero", tied0, 16), ("interior_ties", tied1, 16),
-                         ("dyadic_chain", chain, 1)):
-        fd = build_forest(wd, md, device=device)
+    err = 0.0
+    for fb in (True, False):
+        got = forest_sample(*args, xi, use_fallback=fb, packed=pk)
+        want = ref.ref_forest_sample(*args, xi, use_fallback=fb)
+        check(torch.equal(got, want), f"forest_sample full width use_fallback={fb}")
+        err = max(err, float((got.long() - want.long()).abs().max()))
+    for name, fd in degenerate_forests(device).items():
         u = torch.rand(4096, generator=gen, device=device)
         for fb in (True, False):
             a = forest_sample(*fd[:4], fd.cell_first, fd.fallback, u, use_fallback=fb)
@@ -244,33 +286,58 @@ def kernel_phase(device, weights: np.ndarray, m: int, n_draws: int, gen):
             err = max(err, float((a.long() - b.long()).abs().max()))
         print(f"forest_sample {name}: elementwise equal "
               f"({int(fd.fallback.sum())} flagged cells)", flush=True)
-    print(f"forest_sample {n_draws} draws, n=m={m}: elementwise equal", flush=True)
+    print(f"forest_sample {n_draws} draws, n=m={m}: elementwise equal, both use_fallback; "
+          f"forest_pack bit-exact", flush=True)
     cdf1 = f.cdf[1:].contiguous()
+    traffic = descent_bytes(RadixForest(*(t[None] for t in f)),
+                            torch.zeros_like(xi, dtype=torch.int32), xi, 8)
+    packed = 8 * xi.numel() + 32 * packed_descent_reads(f, xi)
     rows_raw["forest_sample"] = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: forest_sample(*args, xi), 20),
+        ms=cuda_ms_per_call(lambda: forest_sample(*args, xi, packed=pk), 20),
+        one_call_ms=cuda_ms(lambda: forest_sample(*args, xi, packed=pk), 20),
         plain_ms=cuda_ms(lambda: ref.ref_forest_sample(*args, xi), 5),
-        library_ms=cuda_ms(lambda: torch.searchsorted(cdf1, xi, right=True), 20),
-        bound=bound_ms(descent_bytes(RadixForest(*(t[None] for t in f)),
-                                     torch.zeros_like(xi, dtype=torch.int32), xi, 8)[0]))
+        library_ms=cuda_ms_per_call(lambda: torch.searchsorted(cdf1, xi, right=True), 20),
+        bound=bound_ms(traffic[0]), sector_ms=sector_ms(traffic),
+        packed_sector_ms=packed / HBM_BYTES_PER_S * 1e3)
+    r = rows_raw["forest_sample"]
+    print(f"forest_sample {n_draws} draws: {r['ms']:.6f} ms per call, {r['one_call_ms']:.6f} "
+          f"one call; bound {r['bound'][0]:.6f}; sectors {r['sector_ms'][0]:.6f} / "
+          f"{r['sector_ms'][1]:.6f}, packed layout {r['packed_sector_ms']:.6f}", flush=True)
+    # forest_pack: 4 B of cdf, left and right a node, 4 B of table and 1 B of
+    # fallback a cell in; 16 B a node record and 4 B a guide entry out.
+    n = f.n
+    rows_raw["forest_pack"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms_per_call(lambda: forest_pack(f.cdf, f.table, f.left, f.right, f.fallback), 50),
+        one_call_ms=cuda_ms(lambda: forest_pack(f.cdf, f.table, f.left, f.right, f.fallback), 20),
+        plain_ms=cuda_ms_per_call(
+            lambda: ref.ref_forest_pack(f.cdf, f.table, f.left, f.right, f.fallback), 10),
+        library_ms=None,
+        bound=bound_ms(4 * (n + 1) + 8 * n + 5 * m + 16 * n + 4 * m))
     return rows_raw
 
 
 def stage_times(device, weights: np.ndarray, m: int) -> dict:
-    """Time of each construction stage (median of 5, after a warm-up)."""
+    """Time of each construction stage (median of 5, after a warm-up); the
+    total is ``build_forest``'s, and the pack (``forest_pack``, made once
+    per forest by the samplers) follows it."""
     from repro_torch.core import cdf as C
     from repro_torch.core import forest as F
+    from repro_torch.core.sample import pack_forest
 
     w = torch.as_tensor(weights, dtype=torch.float32, device=device)
     cdf = C.build_cdf(w, device=device)
     data = C.lower_bounds(cdf).contiguous()
     cells = F._cells(data, m)
     d = F._separator_distances(data, m)
+    forest = F.build_forest(w, m, device=device)
     return {
         "scan": cuda_ms(lambda: C.build_cdf(w, device=device), 5),
         "distances": cuda_ms(lambda: F._separator_distances(data, m), 5),
         "cell_trees": cuda_ms(lambda: F._build_cell_trees(data, d, cells, m=m), 5),
         "total": cuda_ms(lambda: F.build_forest(w, m, device=device), 5),
+        "pack": cuda_ms(lambda: pack_forest(forest), 5),
     }
 
 
@@ -332,6 +399,7 @@ KERNEL_SYMBOLS = {
     "cdf_scan": ("cdf_scan_warp", "cdf_scan_cluster", "cdf_scan_block"),
     "forest_delta": ("forest_delta_kernel",),
     "forest_sample": ("forest_sample_kernel",),
+    "forest_pack": ("forest_pack_kernel",),
     "forest_delta_update": ("forest_delta_update_kernel",),
     "forest_sample_batched": ("forest_sample_batched_kernel<false>",),
     "forest_sample_batched_streams": ("forest_sample_batched_kernel<true>",),
@@ -1001,12 +1069,16 @@ def pool_kernels(rec: dict, device, gen, n_lanes: int) -> dict:
     oi, ni = old.view(torch.int32), new.view(torch.int32)
     rows["forest_delta_update"] = dict(
         max_abs_err=0.0,
-        ms=cuda_ms(lambda: forest_delta_update(old, new, fsize), 20),
-        plain_ms=cuda_ms(lambda: ref.ref_forest_delta_update(old, new, fsize), 20),
-        library_ms=cuda_ms(lambda: torch.ne(oi, ni), 20),
+        ms=cuda_ms_per_call(lambda: forest_delta_update(old, new, fsize), 50),
+        one_call_ms=cuda_ms(lambda: forest_delta_update(old, new, fsize), 20),
+        plain_ms=cuda_ms_per_call(lambda: ref.ref_forest_delta_update(old, new, fsize), 20),
+        library_ms=cuda_ms_per_call(lambda: torch.ne(oi, ni), 50),
         # 8 B in, 1 B of mask and 4 B of uint32 distance out a leaf; the
         # kernel writes the distances' int64 form (8 B)
         bound=bound_ms(old.numel() * (8 + 1 + 4)))
+    r = rows["forest_delta_update"]
+    print(f"forest_delta_update on {old.numel()} leaves: {r['ms']:.6f} ms per call, "
+          f"{r['one_call_ms']:.6f} one call", flush=True)
     print(f"forest_delta_update on {old.numel()} leaves: bit-exact; "
           f"alias_sample_batched on class {asize} ({len(alive)} rows): elementwise "
           f"== np_sample_alias_f32; forest_sample_batched(_streams) elementwise == "
@@ -1792,6 +1864,7 @@ def run(build_s: float) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.forest_delta import forest_delta, forest_delta_update
     from repro_torch.kernels.forest_sample import (
+        forest_pack,
         forest_sample,
         forest_sample_batched,
         forest_sample_batched_streams,
@@ -1812,6 +1885,7 @@ def run(build_s: float) -> dict:
 
     wrappers = {"cdf_scan": cdf_scan, "forest_delta": forest_delta,
                 "forest_sample": forest_sample,
+                "forest_pack": forest_pack,
                 "forest_delta_update": forest_delta_update,
                 "forest_sample_batched": forest_sample_batched,
                 "forest_sample_batched_streams": forest_sample_batched_streams,
@@ -1893,7 +1967,7 @@ def run(build_s: float) -> dict:
     del erec
     ckpt_root = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
     trec = counted("train", train_path, device, tcfg, ckpt_root)
-    for name in ("cdf_scan", "forest_delta", "forest_sample"):
+    for name in ("cdf_scan", "forest_delta", "forest_sample", "forest_pack"):
         check(counts["train"][name] > 0, f"{name} launched by the trainer's mixture")
     check(counts["train"]["flash_attention"] == 0, "training runs einsum attention")
     train_timing(trec, tcfg, device)
@@ -1910,6 +1984,8 @@ def run(build_s: float) -> dict:
         ("cdf_scan", "src/repro/kernels/cdf_scan.py:78"),
         ("forest_delta", "src/repro/kernels/forest_delta.py:37"),
         ("forest_sample", "src/repro/kernels/forest_sample.py:320"))}
+    # B1's layout, packed once per forest; B1's TPU kernel reads the six arrays
+    sources["forest_pack"] = ("forest_sample.cu", "src/repro/kernels/forest_sample.py:320")
     sources.update(POOL_KERNELS)
     sources["sample_rows"] = ("sample_tiled.cu", "src/repro/kernels/sample_tiled.py:46")
     sources["flash_attention"] = ("flash_attention.cu",
@@ -1917,7 +1993,7 @@ def run(build_s: float) -> dict:
     kernels = []
     for name, (src, replaces) in sources.items():
         r = raw[name]
-        own = ("main" if name in ("cdf_scan", "forest_delta", "forest_sample")
+        own = ("main" if name in ("cdf_scan", "forest_delta", "forest_sample", "forest_pack")
                else "serve" if name == "sample_rows"
                else "eval" if name == "flash_attention" else "pool")
         kernels.append({
@@ -1932,7 +2008,7 @@ def run(build_s: float) -> dict:
         })
         if "at_drain" in r:
             kernels[-1]["at_drain"] = r["at_drain"]
-        for key in ("sector_ms", "one_call_ms"):
+        for key in ("sector_ms", "packed_sector_ms", "one_call_ms"):
             if key in r:
                 kernels[-1][key] = r[key]
         if "at_decode" in r:

@@ -21,6 +21,7 @@ from .forest import (
 )
 from .metrics import chi2_statistic, histogram
 from .sample import (
+    pack_forest,
     sample_binary,
     sample_cutpoint_binary,
     sample_cutpoint_linear,

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import to_device
-from repro_torch.kernels.forest_sample import forest_sample
+from repro_torch.kernels.forest_sample import PackedForest, forest_pack, forest_sample
 
 from .forest import MAX_DEPTH, RadixForest
 
@@ -72,18 +72,43 @@ def sample_cutpoint_linear(
     return i.to(torch.int32)
 
 
+def pack_forest(forest: RadixForest) -> PackedForest:
+    """The layout the ``forest_sample`` kernel reads (``forest_pack``), on
+    the forest's device: make it once per forest and pass it to every
+    :func:`sample_forest` call on that forest."""
+    return forest_pack(forest.cdf, forest.table, forest.left, forest.right, forest.fallback)
+
+
+class PackedForestHolder:
+    """Base of the samplers that hold one forest: setting ``forest`` packs
+    it (``_packed``, for :func:`sample_forest`), so no draw reads the pack
+    of a forest that was replaced."""
+
+    @property
+    def forest(self) -> RadixForest:
+        return self._forest
+
+    @forest.setter
+    def forest(self, forest: RadixForest) -> None:
+        self._forest = forest
+        self._packed = pack_forest(forest)
+
+
 def sample_forest(
-    forest: RadixForest, xi, use_fallback: bool = True, device="cuda"
+    forest: RadixForest, xi, use_fallback: bool = True, device="cuda",
+    packed: PackedForest | None = None,
 ) -> torch.Tensor:
     """Algorithm 2: guide-table lookup, then radix-tree descent.
 
     Node index doubles as CDF index: descend left iff ``xi < cdf[j]``. Lanes
     in degenerate cells (``forest.fallback``) use balanced index bisection
-    instead: the paper's logarithmic-worst-case guard."""
+    instead: the paper's logarithmic-worst-case guard. ``packed`` is
+    :func:`pack_forest` of ``forest`` on ``device``; without it the card packs
+    on the way."""
     f, (xi,) = RadixForest(*_on(device, *forest)), _on(device, xi)
     return forest_sample(
         f.cdf, f.table, f.left, f.right, f.cell_first, f.fallback, xi,
-        use_fallback=use_fallback)
+        use_fallback=use_fallback, packed=packed)
 
 
 def sample_forest_with_stats(forest: RadixForest, xi, device="cuda"):

@@ -16,10 +16,11 @@ import numpy as np
 from repro_torch.core import build_forest, sample_forest
 from repro_torch.core.cdf import normalize_weights, updated_weights
 from repro_torch.core.lds import radical_inverse_base2
+from repro_torch.core.sample import PackedForestHolder
 from repro_torch.device import resolve, to_device
 
 
-class MixtureSampler:
+class MixtureSampler(PackedForestHolder):
     def __init__(self, weights, m: int | None = None, seed: int = 0,
                  sharded: bool = False, device="cuda"):
         if sharded:
@@ -52,4 +53,5 @@ class MixtureSampler:
         else:
             xi = np.random.default_rng(step).random(n)
         xi = to_device(np.asarray(xi, np.float32), self.device)
-        return sample_forest(self.forest, xi, device=self.device).cpu().numpy()
+        return sample_forest(self.forest, xi, device=self.device,
+                             packed=self._packed).cpu().numpy()

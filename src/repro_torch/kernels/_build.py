@@ -42,7 +42,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     "rt_cdf_scan": (_P, _P, *(_I,) * 10, _P),
     "rt_forest_delta": (_P, _P, _I, _I, _P),
-    "rt_forest_sample": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "rt_forest_sample": (*(_P,) * 6, _I, _I, _I, _P),
+    "rt_forest_pack": (*(_P,) * 7, _I, _I, _P),
     "rt_forest_delta_update": (_P, _P, _P, _P, _I, _I, _P),
     "rt_forest_sample_grouped": (
         _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

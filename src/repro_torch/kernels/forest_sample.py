@@ -4,9 +4,11 @@ For CUDA tensors this launches the hand-written kernel
 ``csrc/forest_sample.cu`` (one thread per uniform, each lane descending to
 its own leaf); for CPU tensors it runs the plain version
 :func:`repro_torch.kernels.ref.ref_forest_sample`. Both agree elementwise
-with :func:`repro_torch.core.sample.sample_forest`. The kernel always
-receives ``cell_first`` and ``fallback``: no host round trip decides whether
-any cell is flagged.
+with :func:`repro_torch.core.sample.sample_forest`. The kernel reads the
+forest as :func:`forest_pack` lays it out (the fallback flag folded into the
+guide entry, a node's split and children in one 16-byte record), which the
+samplers make once per forest; it always reads ``cell_first`` for flagged
+cells, so no host round trip decides whether any cell is flagged.
 
 :func:`forest_sample_batched` is the multi-distribution form (the pool's
 drain): lane ``q`` walks row ``dist_id[q]`` of B stacked forests, and
@@ -24,10 +26,76 @@ elementwise identical either way.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import _build, groups
-from .ref import ref_forest_sample, ref_forest_sample_grouped
+from .ref import ref_forest_pack, ref_forest_sample, ref_forest_sample_grouped
+
+
+# Bit 30 of a packed guide entry flags the cell (csrc/forest_sample.cu), so
+# node ids must stay below it.
+PACK_MAX_N = 1 << 30
+
+
+class PackedForest(NamedTuple):
+    """The layout the ``forest_sample`` kernel reads, made by
+    :func:`forest_pack` from a forest's six arrays: ``guide`` (m,) int32 is
+    ``table`` with bit 30 set in flagged cells that hold a tree; ``nodes``
+    (n, 4) int32 is node ``j``'s record (bits of ``cdf[j]``, ``left[j]``,
+    ``right[j]``, 0), one 16-byte load a level."""
+
+    guide: torch.Tensor
+    nodes: torch.Tensor
+
+
+def _check_n(name: str, n: int) -> None:
+    if n >= PACK_MAX_N:
+        raise ValueError(
+            f"{name}: n = {n} intervals; the packed layout holds fewer than 2^30")
+
+
+def _check_spec(name, spec, device) -> None:
+    for tname, t, dtype, shape in spec:
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name}: {tname} must be {dtype} of shape {shape}, "
+                f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name}: {tname} is on {t.device}, expected {device}")
+
+
+def forest_pack(cdf, table, left, right, fallback) -> PackedForest:
+    """The packed layout of one forest (one launch of ``forest_pack_kernel``
+    for CUDA tensors, :func:`repro_torch.kernels.ref.ref_forest_pack` for CPU
+    tensors). Build it once per forest and pass it to every
+    :func:`forest_sample` call on that forest."""
+    n, m = left.shape[0], table.shape[0]
+    _check_n("forest_pack", n)
+    spec = (
+        ("cdf", cdf, torch.float32, (n + 1,)),
+        ("table", table, torch.int32, (m,)),
+        ("left", left, torch.int32, (n,)),
+        ("right", right, torch.int32, (n,)),
+        ("fallback", fallback, torch.bool, (m,)),
+    )
+    _check_spec("forest_pack", spec, table.device)
+    if not table.is_cuda:
+        return PackedForest(*ref_forest_pack(cdf, table, left, right, fallback))
+    dev = table.device
+    out = PackedForest(torch.empty(m, dtype=torch.int32, device=dev),
+                       torch.empty((n, 4), dtype=torch.int32, device=dev))
+    args = [t.contiguous() for _n, t, _d, _s in spec]
+    err = _build.library().rt_forest_pack(
+        *(t.data_ptr() for t in args), *(t.data_ptr() for t in out), n, m,
+        _build.stream_of(table))
+    _build.check(err, "forest_pack")
+    forest_pack.launches += 1
+    return out
+
+
+forest_pack.launches = 0
 
 
 def forest_sample(
@@ -39,9 +107,15 @@ def forest_sample(
     fallback: torch.Tensor,
     xi: torch.Tensor,
     use_fallback: bool = True,
+    packed: PackedForest | None = None,
 ) -> torch.Tensor:
-    """Batch Algorithm 2: xi (B,) f32 -> interval indices (B,) int32."""
+    """Batch Algorithm 2: xi (B,) f32 -> interval indices (B,) int32.
+
+    ``packed`` is :func:`forest_pack` of these arrays; the kernel reads it
+    (and ``cdf`` and ``cell_first`` in flagged cells), and packs on the way
+    where it is not given. The plain version reads the six arrays."""
     n, m = left.shape[0], table.shape[0]
+    _check_n("forest_sample", n)
     spec = (
         ("cdf", cdf, torch.float32, (n + 1,)),
         ("table", table, torch.int32, (m,)),
@@ -51,13 +125,12 @@ def forest_sample(
         ("fallback", fallback, torch.bool, (m,)),
         ("xi", xi, torch.float32, (xi.shape[0],)),
     )
-    for name, t, dtype, shape in spec:
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"forest_sample: {name} must be {dtype} of shape {shape}, "
-                f"got {t.dtype} {tuple(t.shape)}")
-        if t.device != xi.device:
-            raise ValueError(f"forest_sample: {name} is on {t.device}, xi on {xi.device}")
+    _check_spec("forest_sample", spec, xi.device)
+    if packed is not None:
+        _check_spec("forest_sample", (
+            ("packed.guide", packed.guide, torch.int32, (m,)),
+            ("packed.nodes", packed.nodes, torch.int32, (n, 4)),
+        ), xi.device)
     if not xi.is_cuda:
         return ref_forest_sample(
             cdf, table, left, right, cell_first, fallback, xi, use_fallback)
@@ -65,10 +138,12 @@ def forest_sample(
     out = torch.empty(B, dtype=torch.int32, device=xi.device)
     if B == 0:
         return out
-    args = [t.contiguous() for _n, t, _d, _s in spec]
+    if packed is None:
+        packed = forest_pack(cdf, table, left, right, fallback)
+    args = [t.contiguous() for t in (*packed, cdf, cell_first, xi)]
     err = _build.library().rt_forest_sample(
-        *(t.data_ptr() for t in args), out.data_ptr(), m, B,
-        int(use_fallback), _build.stream_of(xi))
+        *(t.data_ptr() for t in args), out.data_ptr(), m, B, int(use_fallback),
+        _build.stream_of(xi))
     _build.check(err, "forest_sample")
     forest_sample.launches += 1
     return out
@@ -104,13 +179,7 @@ def _check_stack(name, cdf, table, left, right, cell_first, fallback):
         ("cell_first", cell_first, torch.int32, (B, m + 1)),
         ("fallback", fallback, torch.bool, (B, m)),
     )
-    for tname, t, dtype, shape in spec:
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"{name}: {tname} must be {dtype} of shape {shape}, "
-                f"got {t.dtype} {tuple(t.shape)}")
-        if t.device != table.device:
-            raise ValueError(f"{name}: {tname} is on {t.device}, table on {table.device}")
+    _check_spec(name, spec, table.device)
     return [t.contiguous() for _n, t, _d, _s in spec]
 
 

@@ -79,6 +79,41 @@ def ref_forest_sample(
     return (~j).to(torch.int32)
 
 
+def ref_forest_pack(cdf, table, left, right, fallback):
+    """The packed layout of ``forest_pack`` (``guide``, ``nodes``, int32):
+    ``table`` with bit 30 set in flagged cells that hold a tree, and each
+    node's record (bits of ``cdf[j]``, ``left[j]``, ``right[j]``, 0)."""
+    guide = torch.where((table >= 0) & fallback, table | (1 << 30), table)
+    nodes = torch.stack([cdf[:-1].view(torch.int32), left, right, torch.zeros_like(left)], 1)
+    return guide, nodes
+
+
+def ref_forest_sample_packed(guide, nodes, cdf, cell_first, xi,
+                             use_fallback: bool = True) -> torch.Tensor:
+    """Algorithm 2 read from the packed layout, as the kernel reads it: the
+    guide entry (bit 30 flags the cell), then one node record a level.
+    Equal to :func:`ref_forest_sample` of the forest packed."""
+    from repro_torch.core.forest import MAX_DEPTH
+    from repro_torch.core.sample import _bisect, _guide_cell
+
+    g = _guide_cell(xi, guide.shape[0])
+    j = guide[g].long()
+    tree = j >= 0
+    flag = tree & ((j & (1 << 30)) != 0) & use_fallback
+    j = torch.where(tree, j & ~(1 << 30), j)
+    bal = _bisect(cdf, xi, cell_first[g].long(), cell_first[g + 1].long(), 32)
+    j = torch.where(flag, ~bal, j)
+    nd = nodes.long()
+    for _ in range(MAX_DEPTH):
+        active = j >= 0
+        if not bool(active.any()):
+            break
+        rec = nd[torch.clamp(j, 0, nodes.shape[0] - 1)]
+        split = rec[:, 0].to(torch.int32).view(torch.float32)
+        j = torch.where(active, torch.where(xi < split, rec[:, 1], rec[:, 2]), j)
+    return (~j).to(torch.int32)
+
+
 def ref_forest_delta_update(data_old: torch.Tensor, data_new: torch.Tensor, m: int):
     """Distances of the new lower bounds (as :func:`ref_forest_delta`) and
     the (n,) mask of leaves whose float32 bit pattern moved."""

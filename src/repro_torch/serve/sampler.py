@@ -26,7 +26,7 @@ from repro_torch.core.lds import (
     qmc_offset_bits_np,
     qmc_point,
 )
-from repro_torch.core.sample import sample_forest
+from repro_torch.core.sample import PackedForestHolder, sample_forest
 from repro_torch.device import resolve, to_device
 from repro_torch.kernels import ops
 
@@ -82,7 +82,7 @@ def _occurrence_rank_np(slots: np.ndarray) -> np.ndarray:
     return rank
 
 
-class ForestSampler:
+class ForestSampler(PackedForestHolder):
     """Shared-distribution serving sampler: ONE static distribution (draft
     prior, data mixture, env-map row), many draws per step.
 
@@ -127,7 +127,7 @@ class ForestSampler:
 
     def sample(self, slots: np.ndarray) -> np.ndarray:
         xi = self.streams.next(slots)
-        idx = sample_forest(self.forest, xi, device=self.device)
+        idx = sample_forest(self.forest, xi, device=self.device, packed=self._packed)
         return idx.cpu().numpy()
 
 

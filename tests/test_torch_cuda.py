@@ -39,6 +39,7 @@ from repro_torch.kernels.cdf_scan import (
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.forest_delta import forest_delta, forest_delta_update
 from repro_torch.kernels.forest_sample import (
+    forest_pack,
     forest_sample,
     forest_sample_batched,
     forest_sample_batched_streams,
@@ -161,6 +162,75 @@ def test_forest_sample_matches_plain(cuda, name):
                             use_fallback=fb).cpu()
         want = forest_sample(*f[:4], f.cell_first, f.fallback, xi, use_fallback=fb)
         assert torch.equal(got, want)
+
+
+def _edge_uniforms(f, B, seed):
+    """B uniforms: every interval's lower bound (as many as fit), 0,
+    1 - 2^-24, the lowest uniform of the last guide cell, and random ones."""
+    m = f.table.shape[0]
+    edges = torch.cat([f.cdf[:-1], torch.tensor([0.0, 1.0 - 2.0 ** -24, (m - 1) / m])])
+    rnd = torch.rand(B, generator=torch.Generator().manual_seed(seed))
+    k = min(B, edges.numel())
+    pick = torch.randperm(edges.numel(), generator=torch.Generator().manual_seed(seed))[:k]
+    rnd[:k] = edges[pick]
+    rnd[-1] = 1.0 - 2.0 ** -24
+    return rnd
+
+
+@pytest.mark.parametrize("B", [1, 31, 33, 257, 4097, 100_000])
+@pytest.mark.parametrize("name", list(_FORESTS))
+def test_forest_sample_lane_tails_and_edges(cuda, name, B):
+    """Lane counts around a warp and a block, uniforms at the CDF's values,
+    at 0, at 1 - 2^-24 and in the last guide cell, with the pack given and
+    made on the way, and with xi at an odd offset."""
+    w, m = _FORESTS[name]
+    f = build_forest(w, m, device="cpu")
+    fd = type(f)(*(t.to(cuda) for t in f))
+    pk = forest_pack(fd.cdf, fd.table, fd.left, fd.right, fd.fallback)
+    xi = _edge_uniforms(f, B + 1, B)
+    for fb in (True, False):
+        want = forest_sample(*f[:4], f.cell_first, f.fallback, xi, use_fallback=fb)
+        for packed in (pk, None):
+            got = forest_sample(*fd[:4], fd.cell_first, fd.fallback, xi.to(cuda),
+                                use_fallback=fb, packed=packed)
+            assert torch.equal(got.cpu(), want)
+        odd = forest_sample(*fd[:4], fd.cell_first, fd.fallback, xi.to(cuda)[1:],
+                            use_fallback=fb, packed=pk)
+        assert torch.equal(odd.cpu(), want[1:])
+
+
+@pytest.mark.parametrize("name", list(_FORESTS))
+def test_forest_pack_matches_plain(cuda, name):
+    w, m = _FORESTS[name]
+    f = build_forest(w, m, device="cpu")
+    fd = type(f)(*(t.to(cuda) for t in f))
+    got = forest_pack(fd.cdf, fd.table, fd.left, fd.right, fd.fallback)
+    want = ref.ref_forest_pack(f.cdf, f.table, f.left, f.right, f.fallback)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("how", ["update_weights", "from_state"])
+def test_forest_sampler_draws_from_its_current_forest(cuda, how):
+    """The stale-pack guard: after an update or a restore, a sampler draws
+    what a freshly built sampler over the same weights draws."""
+    from repro_torch.core import forest_to_numpy
+    from repro_torch.serve.sampler import ForestSampler
+
+    rng = np.random.default_rng(6)
+    w0, w1 = rng.random(50_000) ** 4 + 1e-6, rng.random(50_000) ** 12 + 1e-6
+    fresh = ForestSampler(w1, m=8192, n_slots=4096, device=cuda)
+    if how == "update_weights":
+        s = ForestSampler(w0, m=8192, n_slots=4096, device=cuda)
+        s.sample(np.arange(4096))
+        s.update_weights(w1)
+        s.streams = type(fresh.streams).restore(fresh.streams.snapshot())
+    else:
+        s = ForestSampler.from_state(forest_to_numpy(fresh.forest),
+                                     fresh.streams.snapshot(), device=cuda)
+    for _ in range(3):
+        slots = rng.integers(0, 4096, 20_000)
+        np.testing.assert_array_equal(s.sample(slots), fresh.sample(slots))
 
 
 def test_build_forest_on_card_equals_plain_build(cuda):

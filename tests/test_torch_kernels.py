@@ -28,7 +28,8 @@ from repro_torch.interop import forest_from_numpy
 from repro_torch.kernels import cdf_scan as scan_mod
 from repro_torch.kernels.cdf_scan import SCAN_ATOL, cdf_scan, scan_in_kernel_order, scan_plan
 from repro_torch.kernels.forest_delta import forest_delta
-from repro_torch.kernels.forest_sample import forest_sample
+from repro_torch.kernels import ref
+from repro_torch.kernels.forest_sample import forest_pack, forest_sample
 
 
 @pytest.mark.parametrize("n,m", [(2, 1), (100, 7), (8192, 4096)])
@@ -194,3 +195,75 @@ def test_forest_sample_plain_matches_jax(name):
                         use_fallback=False).numpy()
     np.testing.assert_array_equal(
         raw, np.asarray(jax_sample_forest(jf, jnp.asarray(xi), use_fallback=False)))
+
+
+@pytest.mark.parametrize("name", list(_FORESTS))
+def test_forest_sample_packed_plain_matches_jax(name):
+    """The packed layout's plain descent (guide entry with the flag bit, one
+    node record a level) equals JAX's
+    ``sample_forest`` and ``ops.forest_sample`` elementwise, at random
+    uniforms and at every interval's lower bound, 0 and 1 - 2^-24."""
+    jf = _forest_case(name)
+    f = forest_from_numpy(jax_forest_to_numpy(jf), "cpu")
+    pk = forest_pack(f.cdf, f.table, f.left, f.right, f.fallback)
+    xi = np.concatenate([np.random.default_rng(1).random(2048).astype(np.float32),
+                         f.cdf[:-1].numpy(), np.float32([0.0, 1.0 - 2.0 ** -24])])
+    for fb in (True, False):
+        got = ref.ref_forest_sample_packed(*pk, f.cdf, f.cell_first, torch.from_numpy(xi),
+                                           use_fallback=fb).numpy()
+        want = np.asarray(jax_sample_forest(jf, jnp.asarray(xi), use_fallback=fb))
+        np.testing.assert_array_equal(got, want)
+        if fb:
+            np.testing.assert_array_equal(
+                got, np.asarray(jax_ops.forest_sample(jf, jnp.asarray(xi), use_pallas=False)))
+
+
+def test_forest_pack_flags_only_tree_cells():
+    """Bit 30 marks exactly the flagged cells that hold a tree, and the
+    packed records carry the six arrays' bits."""
+    f = build_forest(_tied(0, 299), 16, device="cpu")
+    guide, nodes = forest_pack(f.cdf, f.table, f.left, f.right, f.fallback)
+    flagged = (guide >= 0) & ((guide & (1 << 30)) != 0)
+    assert torch.equal(flagged, f.fallback & (f.table >= 0)) and bool(flagged.any())
+    assert torch.equal(torch.where(f.table >= 0, guide & ~(1 << 30), guide), f.table)
+    assert torch.equal(nodes[:, 0].view(torch.float32), f.cdf[:-1])
+    assert torch.equal(nodes[:, 1], f.left) and torch.equal(nodes[:, 2], f.right)
+
+
+@pytest.mark.parametrize("which", ["forest_pack", "forest_sample"])
+def test_forest_pack_raises_where_the_flag_bit_cannot_hold_n(which):
+    """Node ids of 2^30 or more would collide with the flag bit: both
+    wrappers refuse such a forest (stride-0 views, so nothing is allocated)."""
+    n, m = 1 << 30, 16
+    i32 = torch.zeros(1, dtype=torch.int32)
+    cdf, left = torch.zeros(1).expand(n + 1), i32.expand(n)
+    table, fallback = i32.expand(m), torch.zeros(1, dtype=torch.bool).expand(m)
+    with pytest.raises(ValueError, match="2\\^30"):
+        if which == "forest_pack":
+            forest_pack(cdf, table, left, left, fallback)
+        else:
+            forest_sample(cdf, table, left, left, i32.expand(m + 1), fallback, torch.zeros(4))
+
+
+@pytest.mark.parametrize("how", ["update_weights", "from_state"])
+def test_forest_sampler_repacks_every_new_forest(how):
+    """A sampler's pack always belongs to its current forest: after an
+    update or a restore it equals the pack of a freshly built sampler."""
+    from repro_torch.core import forest_to_numpy
+    from repro_torch.serve.sampler import ForestSampler
+
+    rng = np.random.default_rng(5)
+    w0, w1 = rng.random(3000) ** 4 + 1e-6, rng.random(3000) ** 8 + 1e-6
+    fresh = ForestSampler(w1, m=1024, device="cpu")
+    if how == "update_weights":
+        s = ForestSampler(w0, m=1024, device="cpu")
+        s.update_weights(w1)
+    else:
+        s = ForestSampler.from_state(forest_to_numpy(fresh.forest),
+                                     fresh.streams.snapshot(), device="cpu")
+    for a, b in zip(s._packed, fresh._packed):
+        assert torch.equal(a, b)
+    pk = forest_pack(s.forest.cdf, s.forest.table, s.forest.left, s.forest.right,
+                     s.forest.fallback)
+    for a, b in zip(s._packed, pk):
+        assert torch.equal(a, b)

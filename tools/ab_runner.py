@@ -39,6 +39,7 @@ def main(tool: str, child: Callable[[Path], dict], title: str, doc: str) -> int:
         o = [r[key] for r in runs["old"]]
         n = [r[key] for r in runs["new"]]
         mo, mn = statistics.fmean(o), statistics.fmean(n)
+        ratio = f"{mo / mn:.2f}" if mn else "n/a"
         print(f"{key}: old {mo:.6f} [{o[0]:.6f} {o[1]:.6f}] new {mn:.6f} "
-              f"[{n[0]:.6f} {n[1]:.6f}] old/new {mo / mn:.2f}", flush=True)
+              f"[{n[0]:.6f} {n[1]:.6f}] old/new {ratio}", flush=True)
     return 0
