@@ -49,19 +49,24 @@ the ignored ``build/`` directory), then:
    in float32 at full width, a chi-square of 2^20 draws from one decode row,
    a few steps in ``inverse_rng`` and ``alias`` mode, the launcher
    (``python -m repro_torch.launch.serve``) once, and the device idle share
-   of one decode step; ``sample_rows`` alone at (16, 151936) and (256,
-   151936), timed beside its plain version and ``torch.searchsorted``;
+   of one decode step; the launch floor (the kernel library's empty kernel,
+   per call); ``sample_rows`` alone at (16, 151936) and (256, 151936), timed
+   beside its plain version and ``torch.searchsorted``, against its byte
+   bound and the floor;
    ``cdf_scan`` (B3) at the decode shape (16, 151936) in bf16 and float32,
    timed beside its plain version, softmax plus cumsum (two library calls)
    and cumsum alone; a row's scan bits checked alone, in a stack of 7 and
    in the whole stack, and from run to run, in every regime of its plan;
-7. the train phase: the SASS check that B10's bf16 instances run on the
-   tensor cores (``HGMMA``) and its float32 ones do not, with the library's
-   build time; ``flash_attention`` (B10) against its plain version at
-   the eval shape (2, 2048, 16 heads, hd 64, bf16, causal), Qwen3-4B's GQA
-   (1, 1024, 32/8 heads, hd 128) and a ragged non-causal float32 case,
-   timed beside the plain version and ``scaled_dot_product_attention``,
-   with the achieved TFLOP/s and the share of the bound's rate;
+7. the train phase: the SASS check that every B10 instance runs on the
+   tensor cores (``HGMMA`` in the bf16 and the float32 ones),
+   with the library's build time; ``flash_attention`` (B10) against its
+   plain version at the eval shape (2, 2048, 16 heads, hd 64, bf16,
+   causal), Qwen3-4B's GQA (1, 1024, 32/8 heads, hd 128), a ragged
+   non-causal float32 case (1, 1000, 4/2 heads, hd 64) and the eval shape in
+   float32, timed beside the plain version and
+   ``scaled_dot_product_attention``, with the achieved TFLOP/s and the share
+   of the bound's rate (float32: both bounds, the work on the CUDA cores and
+   the three TF32 products on the tensor cores);
    the eval path, ``loss_fn`` without gradients over Qwen1.5-0.5B at full
    width in bf16 on a 2 x 2048 ``make_batch`` batch, flash against einsum
    (B10 launched once per layer), and the device profile of one forward;
@@ -77,8 +82,9 @@ the ignored ``build/`` directory), then:
    only, by the kernels' symbols, around a second counted run of each path
    at the end, so the first runs' times carry no tracing cost; ``cdf_scan``
    also carries its decode-shape times as ``at_decode``, B6 and B8 their
-   drain-shape times as ``at_drain``), then the result line as the last
-   line of standard output.
+   drain-shape times as ``at_drain``, B9 its shapes and the launch floor as
+   ``at_shapes`` and ``launch_floor_ms``, B10 its float32 rows as
+   ``at_f32``), then the result line as the last line of standard output.
 
 Any failed check raises and exits non-zero. Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no result.
@@ -407,7 +413,7 @@ KERNEL_SYMBOLS = {
                             "alias_build_tapes", "alias_build_search"),
     "alias_sample_batched": ("alias_sample_batched_kernel",),
     "sample_rows": ("sample_rows_kernel",),
-    "flash_attention": ("flash_attention_f32", "flash_attention_bf16_wgmma"),
+    "flash_attention": ("flash_attention_f32_tf32x3", "flash_attention_bf16_wgmma"),
 }
 PATHS = ("main", "pool", "serve", "eval", "train")
 
@@ -1304,6 +1310,10 @@ SERVE_PRIORS = 4             # prior-backed requests beside them
 SERVE_MAX_NEW = 32
 SERVE_CHI2_DRAWS = 1 << 20
 SERVE_ROWS_SHAPES = ((16, 151936, 1), (256, 151936, 1))  # B9 timed alone
+# B9's per-call times before its warp-per-draw design (a block of 256 threads
+# a draw), measured by tools/ab_sample_rows.py on an NVIDIA H100 80GB HBM3 at
+# 700 W; printed beside this run's times, never measured here.
+SAMPLE_ROWS_BLOCK_MS = {(16, 151936, 1): 0.003146, (256, 151936, 1): 0.003648}
 DECODE_ATOL = 1e-3           # decode vs prefill logits, float32, full width
 
 
@@ -1520,11 +1530,16 @@ def serve_kernels(device, gen, shapes=SERVE_ROWS_SHAPES) -> dict:
     host's launch, not these microsecond kernels).
     The bound counts the bytes the two-level search must read: nt cutpoints
     at one 32 B sector each plus one 2 KB tile per draw, plus the uniform in
-    and the index out."""
-    from repro_torch.kernels import ref
+    and the index out. Beside it the launch floor: the library's empty kernel
+    (one warp) timed the same way, which no launch of the library beats; and
+    the time of B9's earlier design (``SAMPLE_ROWS_BLOCK_MS``, recorded)."""
+    from repro_torch.kernels import _build, ref
     from repro_torch.kernels.cdf_scan import cdf_scan
     from repro_torch.kernels.sample_tiled import TILE, sample_rows
 
+    floor = cuda_ms_per_call(lambda: _build.empty_launch(device), 100)
+    print(f"launch floor: the kernel library's empty kernel (one warp) {floor:.6f} ms per "
+          f"call (queued behind a spin, back to back between CUDA events)", flush=True)
     rows = {}
     for B, V, k in shapes:
         cdf = cdf_scan(torch.randn((B, V), generator=gen, device=device) * 3.0)
@@ -1537,19 +1552,27 @@ def serve_kernels(device, gen, shapes=SERVE_ROWS_SHAPES) -> dict:
                  plain_ms=cuda_ms_per_call(lambda: ref.ref_sample_rows(cdf, xi), 20),
                  library_ms=cuda_ms_per_call(
                      lambda: torch.searchsorted(cdf, xi, right=True), 100),
-                 bound=bound_ms(B * k * (nt * 32 + TILE * 4 + 4 + 4)))
+                 bound=bound_ms(B * k * (nt * 32 + TILE * 4 + 4 + 4)), launch_floor_ms=floor)
+        block = SAMPLE_ROWS_BLOCK_MS.get((B, V, k))
+        earlier = "not recorded" if block is None else f"{block:.6f} ms (recorded, not this run)"
         print(f"sample_rows {(B, V, k)}: elementwise == plain; kernel {r['ms']:.6f} ms, "
               f"plain {r['plain_ms']:.6f} ms, torch.searchsorted {r['library_ms']:.6f} ms "
-              f"(per call, queued behind a spin, back to back between CUDA events; "
-              f"one call under events: kernel "
-              f"{cuda_ms(lambda: sample_rows(cdf, xi), 50):.4f} ms); "
+              f"(per call, queued behind a spin, back to back between CUDA events); byte "
+              f"bound {r['bound'][0]:.6f} ms, launch floor {floor:.6f} ms, kernel "
+              f"{r['ms'] - floor:.6f} ms above the floor; the earlier block-a-draw design "
+              f"{earlier}; one call under events: kernel "
+              f"{cuda_ms(lambda: sample_rows(cdf, xi), 50):.4f} ms; "
               f"device time per call (profiler, 50 calls): "
               f"kernel {device_ms(lambda: sample_rows(cdf, xi), 50):.4f} ms, plain "
               f"{device_ms(lambda: ref.ref_sample_rows(cdf, xi), 50):.4f} ms, "
               f"torch.searchsorted "
-              f"{device_ms(lambda: torch.searchsorted(cdf, xi, right=True), 50):.4f} ms; "
-              f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]})", flush=True)
+              f"{device_ms(lambda: torch.searchsorted(cdf, xi, right=True), 50):.4f} ms",
+              flush=True)
         rows.setdefault("sample_rows", r)  # the first shape: the decode path's
+        rows["sample_rows"].setdefault("at_shapes", []).append(
+            {"shape": [B, V, k], "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "library_ms": r["library_ms"], "bound_ms": r["bound"][0],
+             "launch_floor_ms": floor})
     return rows
 
 
@@ -1634,11 +1657,19 @@ def serve_profile(rec: dict, device, cfg) -> None:
 
 TRAIN_ARCH = "qwen1_5_0_5b"
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
+TF32_OPS_PER_S = 495e12     # H100 SXM dense TF32 tensor cores
 # (B, S, H, KV, hd, dtype, causal): the eval shape, Qwen3-4B's GQA, ragged
+# float32, the eval shape in float32
 FLASH_SHAPES = ((2, 2048, 16, 16, 64, torch.bfloat16, True),
                 (1, 1024, 32, 8, 128, torch.bfloat16, True),
-                (1, 1000, 4, 2, 64, torch.float32, False))
+                (1, 1000, 4, 2, 64, torch.float32, False),
+                (2, 2048, 16, 16, 64, torch.float32, True))
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the JAX suite's
+# B10's float32 times per call before its three-TF32 tensor-core body (the
+# CUDA-core body), measured by tools/ab_flash_f32.py on an NVIDIA H100 80GB
+# HBM3 at 700 W; printed beside this run's times, never measured here.
+FLASH_F32_CUDA_CORE_MS = {(1, 1000, 4, 2, 64, False): 0.128634,
+                          (2, 2048, 16, 16, 64, True): 0.995504}
 EVAL_B, EVAL_S = 2, 2048
 EVAL_NLL_ATOL = 1e-2        # flash vs einsum nll, bf16 at full width
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 256, 4
@@ -1646,17 +1677,18 @@ MIXTURE = (0.5, 0.25, 0.125, 0.125)
 
 
 def flash_sass_check() -> str:
-    """The bf16 instances of B10 issue tensor-core instructions (``HGMMA`` in
-    the library's SASS) and the float32 instances do not."""
+    """Every instance of B10 issues tensor-core instructions in the library's
+    SASS, ``HGMMA`` (wgmma): the bf16 ones on bf16, the float32 ones on TF32
+    (three products for each)."""
     from repro_torch.kernels import _build
 
-    hgmma = {n: t.count("HGMMA") for n, t in _build.sass().items() if "flash_attention" in n}
-    bf16 = {n: c for n, c in hgmma.items() if "bf16" in n}
-    f32 = {n: c for n, c in hgmma.items() if "f32" in n}
+    sass = {n: t for n, t in _build.sass().items() if "flash_attention" in n}
+    bf16 = {n: t.count("HGMMA") for n, t in sass.items() if "bf16" in n}
+    f32 = {n: t.count("HGMMA") for n, t in sass.items() if "f32" in n}
     check(len(bf16) == 3 and all(bf16.values()), f"HGMMA in every bf16 B10 instance: {bf16}")
-    check(len(f32) == 3 and not any(f32.values()), f"no HGMMA in the float32 B10: {f32}")
+    check(len(f32) == 3 and all(f32.values()), f"HGMMA in every float32 B10 instance: {f32}")
     return (f"HGMMA instructions per bf16 instance {sorted(bf16.values())}, "
-            f"per float32 instance {sorted(f32.values())}")
+            f"per float32 instance {sorted(f32.values())}: all on the tensor cores")
 
 
 def flash_kernels(device, gen, build_s: float) -> dict:
@@ -1666,10 +1698,13 @@ def flash_kernels(device, gen, build_s: float) -> dict:
     GQA and all three laid out (B, heads, S, hd) before timing). The bound:
     the larger of q/k/v/o bytes over 3.35 TB/s and the unmasked
     score-and-value FLOPs (``2*2*B*H*hd`` per visible (query, key) pair)
-    over the dense tensor-core peak of the inputs' type (the CUDA-core peak
-    for float32, which B10 runs there); the achieved rate is those FLOPs
-    over the kernel's time. Also the SASS check of the tensor-core
-    instances and the library's build time (``build_s``)."""
+    over the dense tensor-core peak of the inputs' type; for float32 the
+    work over the CUDA-core peak (67 TFLOP/s), and beside it the three TF32
+    products the float32 body issues (3x the FLOPs) over the dense TF32
+    peak (495 TFLOP/s), with the earlier CUDA-core body's recorded time
+    (``FLASH_F32_CUDA_CORE_MS``). The achieved rate is the FLOPs over the
+    kernel's time. Also the SASS check of the tensor-core instances and the
+    library's build time (``build_s``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -1701,14 +1736,30 @@ def flash_kernels(device, gen, build_s: float) -> dict:
                  plain_ms=cuda_ms_per_call(lambda: ref.ref_flash_attention(q, k, v, causal), 3),
                  library_ms=cuda_ms_per_call(sdpa, 20),
                  bound=bound_ms(nbytes(q, k, v, got), flops, peak))
+        extra = ""
+        if dt == torch.float32:
+            r["bound_tf32x3_ms"] = 3 * flops / TF32_OPS_PER_S * 1e3
+            older = FLASH_F32_CUDA_CORE_MS.get((B, S, H, KV, hd, causal))
+            extra = (f"; three TF32 products over 495 TFLOP/s {r['bound_tf32x3_ms']:.4f} ms "
+                     f"({r['bound_tf32x3_ms'] / r['ms']:.1%} of that rate, "
+                     f"{3 * flops / r['ms'] / 1e9:.1f} TFLOP/s of TF32); the earlier "
+                     f"CUDA-core body "
+                     + ("not recorded" if older is None
+                        else f"{older:.4f} ms (recorded, not this run)"))
         print(f"flash_attention {(B, S, H, KV, hd)} {str(dt)[6:]} causal={causal}: max |err| "
               f"vs plain {err:.3e} (tol {tol}); SDPA vs plain {lib_err:.3e}; kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms "
               f"(per call, queued behind a spin); bound {r['bound'][0]:.4f} ms "
               f"({r['bound'][1]}; {flops / 1e9:.2f} GFLOP, {nbytes(q, k, v, got) / 1e6:.1f} MB); "
               f"{flops / r['ms'] / 1e9:.1f} TFLOP/s, {r['bound'][0] / r['ms']:.1%} of the "
-              f"bound's rate", flush=True)
+              f"bound's rate{extra}", flush=True)
         rows.setdefault("flash_attention", r)  # the first shape: the eval path's
+        if dt == torch.float32:
+            rows["flash_attention"].setdefault("at_f32", []).append(
+                {"shape": [B, S, H, KV, hd], "causal": causal, "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                 "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                 "bound_tf32x3_ms": r["bound_tf32x3_ms"], "max_abs_err": err})
     return rows
 
 
@@ -2008,7 +2059,8 @@ def run(build_s: float) -> dict:
         })
         if "at_drain" in r:
             kernels[-1]["at_drain"] = r["at_drain"]
-        for key in ("sector_ms", "packed_sector_ms", "one_call_ms"):
+        for key in ("sector_ms", "packed_sector_ms", "one_call_ms", "at_f32", "at_shapes",
+                    "launch_floor_ms"):
             if key in r:
                 kernels[-1][key] = r[key]
         if "at_decode" in r:

@@ -52,6 +52,7 @@ _SIGNATURES = {
     "rt_alias_scratch_words": (_I,),
     "rt_alias_sample_grouped": (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "rt_sample_rows": (_P, _P, _P, _I, _I, _I, _P),
+    "rt_empty": (_P,),
     "rt_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *(_L,) * 12,
                            _I, _I, _F, _P),
 }
@@ -153,6 +154,12 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"repro_torch: {what} launch failed: CUDA error {err}")
+
+
+def empty_launch(device) -> None:
+    """Launch the library's empty kernel (one warp) on ``device``'s current
+    stream: the floor under which no launch of this library runs."""
+    check(library().rt_empty(torch.cuda.current_stream(device).cuda_stream), "empty kernel")
 
 
 def stream_of(t) -> int:

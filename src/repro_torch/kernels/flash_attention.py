@@ -9,8 +9,10 @@ place (GQA without copying K/V). For CUDA tensors it launches the
 hand-written kernel ``csrc/flash_attention.cu``: bfloat16 inputs run on the
 tensor cores (wgmma, TMA loads; the scale is applied after the product and
 the softmax weights are rounded to bf16 before the product with V, as the
-JAX einsum path rounds them), float32 inputs on the CUDA cores (on the
-tensor cores float32 would be TF32). For CPU tensors it runs the plain
+JAX einsum path rounds them), float32 inputs on the tensor cores too (wgmma
+on TF32), each product as three TF32 products (operands split into TF32 hi
+and lo parts, lo.hi' + hi.lo' + hi.hi' summed in float32: ~22 bits, where
+TF32 alone would miss the float32 tolerance). For CPU tensors it runs the plain
 version :func:`repro_torch.kernels.ref.ref_flash_attention` (materialized
 scores). The two sum in other orders, so they agree to a tolerance, not
 bit for bit.

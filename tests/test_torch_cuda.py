@@ -15,8 +15,8 @@ order) and to validity and mass conservation on every row; the per-row
 inverse-CDF search elementwise on monotone and dipped rows; flash attention
 to the JAX suite's tolerances (2e-5 in float32, 2e-2 in bfloat16) against
 its plain version on the same card tensors (the two sum in other orders),
-bitwise repeatable, with its bf16 instances on the tensor cores (HGMMA in
-the library's SASS).
+bitwise repeatable, with every instance on the tensor cores (HGMMA in the
+library's SASS, bf16 and float32 alike).
 """
 from pathlib import Path
 
@@ -632,8 +632,13 @@ def _cdf_rows(B, V, seed, cuda):
     return cdf_scan((torch.randn(B, V, generator=g) * 3).to(cuda))
 
 
-@pytest.mark.parametrize("B,V,k", [(1, 1, 1), (3, 511, 4), (16, 151936, 1),
-                                   (4, 50257, 3), (256, 1024, 2)])
+@pytest.mark.parametrize("B,V,k", [
+    (1, 1, 1), (3, 511, 4), (16, 151936, 1), (4, 50257, 3), (256, 1024, 2),
+    (2, 151935, 3), (3, 50257, 8),            # row bases off the 16-byte grid
+    (4, 7, 2), (5, 31, 8),                    # V < 32: one partial tile
+    (2, 1023, 4), (2, 1025, 4), (3, 2047, 2), (3, 2049, 8), (2, 1024, 3),  # 512 j -+ 1
+    (256, 151936, 1), (256, 1024, 8),         # four warps a block
+    (1, 300000, 2)])                          # level 1 in two rounds of loads (586 tiles)
 def test_sample_rows_matches_plain(cuda, B, V, k):
     cdf = _cdf_rows(B, V, V, cuda)
     g = torch.Generator().manual_seed(k)
@@ -650,6 +655,20 @@ def test_sample_rows_matches_plain(cuda, B, V, k):
     # on these monotone rows: searchsorted (right), clipped
     want = torch.clamp(torch.searchsorted(cdf, xi, right=True), max=V - 1)
     assert torch.equal(got.long(), want)
+
+
+def test_sample_rows_misaligned_row_base(cuda):
+    """V % 4 == 0 but the rows start 4 bytes past the 16-byte grid (a view
+    one float into its buffer): the scalar tile path, equal to the plain
+    version."""
+    B, V = 3, 151936
+    rows = _cdf_rows(B, V, 3, cuda)
+    buf = torch.empty(B * V + 1, device=cuda)
+    view = buf[1:].view(B, V)
+    view.copy_(rows)
+    assert view.data_ptr() % 16 and view.is_contiguous()
+    xi = torch.rand(B, 5, generator=torch.Generator().manual_seed(4)).to(cuda)
+    assert torch.equal(sample_rows(view, xi).cpu(), ref.ref_sample_rows(rows.cpu(), xi.cpu()))
 
 
 def test_sample_rows_matches_plain_on_dipped_rows(cuda):
@@ -768,6 +787,54 @@ def test_flash_attention_bf16_tile_edges(cuda, B, Sq, Sk, H, KV, hd, causal):
                                rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd", [
+    (1, 63, 63, 2, 1, 64),        # one warpgroup's rows, one key tile short
+    (1, 65, 65, 4, 2, 64),        # one row into the second warpgroup, past a key tile
+    (1, 127, 129, 4, 4, 32),      # one row short of a 128-row query tile, hd 32
+    (2, 129, 127, 4, 4, 32),      # one row past it
+    (1, 64, 255, 1, 1, 64),       # one CTA: a cluster of 4 over 4 key tiles, one short
+    (1, 64, 256, 1, 1, 64),       # ... exactly 4 tiles
+    (1, 64, 257, 1, 1, 64),       # ... 5 tiles, rank 0 takes two
+    (1, 257, 257, 1, 1, 64),      # causal: the first query tile leaves ranks without keys
+    (1, 96, 127, 2, 1, 128),      # hd 128: 32-key tiles, 4 x 32 - 1 keys
+    (1, 96, 129, 2, 1, 128),      # ... 4 x 32 + 1
+    (1, 33, 300, 8, 2, 128),      # Sq < Sk, GQA G = 4
+    (2, 200, 50, 4, 4, 32),       # Sq > Sk
+    (1, 300, 300, 16, 2, 64),     # GQA G = 8
+    (1, 1000, 1000, 4, 2, 64),    # the 10f shape: clusters of 4
+    (4, 512, 512, 16, 16, 64),    # 256 CTAs: no split
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_f32_tile_edges(cuda, B, Sq, Sk, H, KV, hd, causal):
+    """The float32 tensor-core body (three TF32 products) at the edges of its
+    128-row query tiles (64 rows a warpgroup) and 64- or 32-key tiles, of the
+    key tiles a cluster's ranks share, with GQA, causal or not, at hd 32, 64
+    and 128: within the JAX suite's float32 tolerance of the plain version."""
+    q, k, v = _qkv(B, Sq, Sk, H, KV, hd, torch.float32, Sq + Sk + H + hd, cuda)
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = ref.ref_flash_attention(q, k, v, causal=causal)
+    tol = FLASH_TOL[torch.float32]
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd", [(1, 1000, 4, 2, 64), (1, 257, 2, 1, 32),
+                                          (1, 300, 2, 2, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_f32_split_is_deterministic(cuda, B, S, H, KV, hd, causal):
+    """Shapes whose query tiles run as clusters of 2 or 4 CTAs, joined in rank
+    order: two calls bitwise equal, and the strided (B, heads, S, hd) views
+    (read with scalar loads) give the same bits as contiguous inputs."""
+    q, k, v = _qkv(B, S, S, H, KV, hd, torch.float32, 11, cuda)
+    a = flash_attention(q, k, v, causal=causal)
+    assert torch.equal(a, flash_attention(q, k, v, causal=causal))
+    buf = [torch.empty(t.numel() + 1, device=cuda) for t in (q, k, v)]
+    shifted = [b_[1:].view(t.shape).copy_(t) for b_, t in zip(buf, (q, k, v))]
+    assert shifted[0].data_ptr() % 16
+    assert torch.equal(flash_attention(*shifted, causal=causal), a)
+
+
 def test_flash_attention_copies_what_tma_cannot_read(cuda):
     """bf16 views with a base off the 16-byte grid, or a head stride that is
     not a multiple of 16 bytes, give the result of their contiguous copies."""
@@ -802,15 +869,16 @@ def test_flash_attention_is_deterministic(cuda, dtype):
 
 
 def test_flash_attention_bf16_runs_on_tensor_cores(cuda):
-    """The library's SASS: every bf16 instance of B10 issues HGMMA (wgmma),
-    no float32 instance does."""
+    """The library's SASS: every instance of B10 runs on the tensor cores,
+    with HGMMA (wgmma): bf16 on bf16, float32 as three TF32 products for
+    each product."""
     from repro_torch.kernels import _build
 
-    hgmma = {n: t.count("HGMMA") for n, t in _build.sass().items() if "flash_attention" in n}
-    bf16 = [c for n, c in hgmma.items() if "bf16" in n]
-    f32 = [c for n, c in hgmma.items() if "f32" in n]
-    assert len(bf16) == 3 and all(bf16), hgmma
-    assert len(f32) == 3 and not any(f32), hgmma
+    sass = {n: t for n, t in _build.sass().items() if "flash_attention" in n}
+    bf16 = {n: t.count("HGMMA") for n, t in sass.items() if "bf16" in n}
+    f32 = {n: t.count("HGMMA") for n, t in sass.items() if "f32" in n}
+    assert len(bf16) == 3 and all(bf16.values()), bf16
+    assert len(f32) == 3 and all(f32.values()), f32
 
 
 def test_forward_flash_matches_einsum_on_card(cuda):

@@ -3,7 +3,8 @@ tool's ``child(tree)`` for two checkouts of this repository, each in a
 process of its own, in the order old, new, new, old, and prints the card's
 name and power limit, then one line a measurement: old and new, each the
 mean of its two processes (each process's value in brackets), and old /
-new."""
+new; a measurement that only one checkout makes is printed for that one
+alone."""
 from __future__ import annotations
 
 import json
@@ -35,7 +36,12 @@ def main(tool: str, child: Callable[[Path], dict], title: str, doc: str) -> int:
             return 1
         runs[which].append(json.loads(done.stdout.strip().splitlines()[-1]))
     print(f"{title}: old ({old}) against new ({new}), mean of two processes each", flush=True)
-    for key in runs["old"][0]:
+    for key in dict.fromkeys([*runs["old"][0], *runs["new"][0]]):
+        if key not in runs["old"][0] or key not in runs["new"][0]:  # one checkout only
+            which, vals = ("old", runs["old"]) if key in runs["old"][0] else ("new", runs["new"])
+            print(f"{key}: {which} only {statistics.fmean(r[key] for r in vals):.6f} "
+                  f"[{vals[0][key]:.6f} {vals[1][key]:.6f}]", flush=True)
+            continue
         o = [r[key] for r in runs["old"]]
         n = [r[key] for r in runs["new"]]
         mo, mn = statistics.fmean(o), statistics.fmean(n)
