@@ -20,7 +20,27 @@ the ignored ``build/`` directory), then:
    the plain CPU build from the same CDF bits, every draw's bracket, and a
    chi-square test; serves 8 ``ForestSampler.sample`` calls with duplicate
    slots and checks them against ``sample_binary`` at the same QMC points;
-4. drives the pool path: a ``PooledForestSampler`` over a ``ForestPool`` of
+4. runs the paper's workloads on the card (``benchmarks/torch_table1.py``
+   and ``benchmarks/torch_convergence.py``: Table 1's load counts, the 1-D
+   convergence up to 2^18 points, the 2-D one on ``env_map_2d(128, 256)``
+   up to 2^20, the discrepancy of Fig. 1) and prints their lines; checks
+   the card's forests against the plain CPU builds from the same CDF bits
+   and the counts and histograms against the plain CPU path on them;
+5. drives the map2d path: a ``SpatialSampler`` over ``env_map_2d(2048,
+   4096)`` (a 4K equirectangular HDR map, 8.4M texels, one size class)
+   with 2^16 device QMC slots, 8 drains of 2^20 slot occurrences, the fused
+   drain once under ``torch.cuda.set_sync_debug_mode("error")``, an
+   update of 64 rows in each form (new weights, deltas), one more drain, a
+   snapshot and restore; a seeded ragged map of 2048 rows over every class
+   8..4096 (the multi-class drain, one grouped launch); a prior-only
+   ``ServeEngine`` serving 16 ``prior2d`` requests on the 4K map. Every
+   drain is checked against the plain versions at the same points on CPU
+   copies of the card's arrays, the points and counters against a host
+   ``Qmc2Streams``, the builds against plain CPU builds from the same CDF
+   bits, the updated map against a fresh build, and a chi-square over 64 x
+   64 texel blocks; prints build times, draws/s, update latency and the
+   device idle share of one drain;
+6. drives the pool path: a ``PooledForestSampler`` over a ``ForestPool`` of
    4096 tenants (sizes 17 to 65536 in 12 power-of-two classes, ~45M padded
    cells, even tenants forest, odd alias, 16 tied and 64 dyadic ones):
    one admission wave, 8 QMC stream drains of 2^20 draws over 2^16 slots,
@@ -30,7 +50,7 @@ the ignored ``build/`` directory), then:
    host ``QmcStreams`` twin; after the run, forest rows against the plain
    CPU build from the same CDF bits, the alias build (bit-exact on dyadic
    tenants, valid and mass-conserving on all), a per-tenant chi-square;
-5. holds each pool kernel against its plain version at 2^22 lanes on the
+7. holds each pool kernel against its plain version at 2^22 lanes on the
    largest class's stacks and times it (B5, B6 and B8 with two
    sector-traffic estimates beside the byte bound); holds B6 and B8 at the
    drain's shape (the last stream drain's lanes of each method over all its
@@ -40,7 +60,7 @@ the ignored ``build/`` directory), then:
    admission times by class, the device idle share of one drain, the
    device ms, kernel launches and copies of one stream and one
    host-uniform drain, and the host profile of one drain;
-6. drives the serve path: a ``ServeEngine`` (16 slots, 256-token KV budget)
+8. drives the serve path: a ``ServeEngine`` (16 slots, 256-token KV budget)
    over Qwen1.5-0.5B at full width in bfloat16 with seeded random weights,
    serving 32 model-backed requests (prompts of 8 to 64 tokens, 32 new
    tokens each, ``inverse_qmc``) and 4 prior-backed ones; every sampler
@@ -57,7 +77,7 @@ the ignored ``build/`` directory), then:
    timed beside its plain version, softmax plus cumsum (two library calls)
    and cumsum alone; a row's scan bits checked alone, in a stack of 7 and
    in the whole stack, and from run to run, in every regime of its plan;
-7. the train phase: the SASS check that every B10 instance runs on the
+9. the train phase: the SASS check that every B10 instance runs on the
    tensor cores (``HGMMA`` in the bf16 and the float32 ones),
    with the library's build time; ``flash_attention`` (B10) against its
    plain version at the eval shape (2, 2048, 16 heads, hd 64, bf16,
@@ -75,11 +95,12 @@ the ignored ``build/`` directory), then:
    step 2 and resumed, bitwise equal under deterministic algorithms; the
    mixture's forest kernels counted; step time, the profile of one step,
    and the training launcher once in a subprocess;
-8. prints the kernels line (launch counts from the runs of steps 3, 4, 6
-   and 7's eval path, each with every count set to 0 just before it; each
-   kernel's launches and summed device time on each of the five paths, main,
-   pool, serve, eval and train: the time from torch.profiler, CUDA activity
-   only, by the kernels' symbols, around a second counted run of each path
+10. prints the kernels line (launch counts from the runs of steps 3, 4, 5,
+   6, 8 and 9's eval and train paths, each with every count set to 0 just
+   before it; each kernel's launches and summed device time on each of the
+   seven paths, main, paper, map2d, pool, serve, eval and train: the time
+   from torch.profiler, CUDA activity only, by the kernels' symbols, around
+   a second counted run of each path
    at the end, so the first runs' times carry no tracing cost; ``cdf_scan``
    also carries its decode-shape times as ``at_decode``, B6 and B8 their
    drain-shape times as ``at_drain``, B9 its shapes and the launch floor as
@@ -404,7 +425,7 @@ def profile_calls(calls) -> None:
 KERNEL_SYMBOLS = {
     "cdf_scan": ("cdf_scan_warp", "cdf_scan_cluster", "cdf_scan_block"),
     "forest_delta": ("forest_delta_kernel",),
-    "forest_sample": ("forest_sample_kernel",),
+    "forest_sample": ("forest_sample_kernel", "forest_sample_wide_kernel"),
     "forest_pack": ("forest_pack_kernel",),
     "forest_delta_update": ("forest_delta_update_kernel",),
     "forest_sample_batched": ("forest_sample_batched_kernel<false>",),
@@ -415,7 +436,7 @@ KERNEL_SYMBOLS = {
     "sample_rows": ("sample_rows_kernel",),
     "flash_attention": ("flash_attention_f32_tf32x3", "flash_attention_bf16_wgmma"),
 }
-PATHS = ("main", "pool", "serve", "eval", "train")
+PATHS = ("main", "paper", "map2d", "pool", "serve", "eval", "train")
 
 
 def kernel_of(key: str):
@@ -534,6 +555,320 @@ def main_path(device, weights: np.ndarray, m: int, n_draws: int, gen) -> None:
         check(torch.equal(scdf[got_t], scdf[want]), f"serving call {call} vs sample_binary")
     print(f"serving: 8 calls, {sum(len(s) for s, _g, _p in served)} draws == "
           f"sample_binary at the same QMC points; counters exact", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# The paper's workloads and the 2-D map path.
+# ---------------------------------------------------------------------------
+
+
+def paper_path(device) -> None:
+    """The paper's own experiments on the card: Table 1's load counts and
+    the convergence runs of Figs. 1, 7-9 (1-D up to 2^18 points, 2-D at
+    h = 128, w = 256 up to 2^20), each forest built and descended there."""
+    import benchmarks.torch_convergence as CV
+    import benchmarks.torch_table1 as T1
+
+    t = time.perf_counter()
+    lines = T1.main(device=device) + CV.main(device=device)
+    torch.cuda.synchronize()
+    for line in lines:
+        print(line, flush=True)
+    print(f"paper workloads on the card: {len(lines)} lines in "
+          f"{time.perf_counter() - t:.3f} s (host clock)", flush=True)
+
+
+def paper_checks(device) -> None:
+    """The card's Table 1 and convergence forests against the plain CPU
+    builds from the same CDF bits, and their counts and histograms against
+    the plain CPU path on those CDFs."""
+    import benchmarks.torch_convergence as CV
+    import benchmarks.torch_table1 as T1
+    from repro_torch.core import build_cdf, build_forest_rows, forest_from_cdf
+    from repro_torch.core.cdf import normalize_weights, np_build_cdf
+
+    def card_cdf(p):
+        return build_cdf(p, device=device).cpu().numpy()
+
+    for name, f in T1.forests(device=device).items():
+        plain = forest_from_cdf(f.cdf.cpu(), f.m, device="cpu")
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(f, plain)),
+              f"table1 {name}: card forest == plain CPU build")
+    rows = T1.run(device=device)
+    check(rows == T1.run(device="cpu", cdf_of=lambda _n, w: card_cdf(w)),
+          "table1: card counts == plain CPU path on the card's CDFs")
+    differ = {name: int((card_cdf(make(256)) != build_cdf(make(256), device="cpu").numpy()).sum())
+              for name, make in T1.TABLE1.items()}
+    print("table1 on the card's own CDFs, full precision: "
+          + "; ".join(f"{n} {meth} avg {r['average']!r} avg32 {r['average_32']!r}"
+                      for n, meth, r in rows)
+          + f"; CDF words where the card's build_cdf differs from the plain CPU scan "
+            f"(of 257): {differ}", flush=True)
+    for label, run in (("1-D", CV.run_1d), ("2-D", CV.run_2d)):
+        a, b = [], []
+        ra = run(device=device, counts=a)
+        rb = run(device="cpu", cdf_of=card_cdf, counts=b)
+        check(ra == rb and len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b)),
+              f"convergence {label}: card histograms == plain CPU path")
+    img = CV.env_map_2d(128, 256)
+    cdfs = np.stack([np_build_cdf(normalize_weights(img[r] + 1e-18)) for r in range(128)])
+    fd, fc = (build_forest_rows(cdfs, 256, device=d) for d in (device, "cpu"))
+    check(all(torch.equal(getattr(fd, k).cpu(), getattr(fc, k))
+              for k in ("data", "table", "left", "right", "cell_first", "fallback")),
+          "convergence 2-D: card row forest == plain CPU build")
+    print("paper workloads: card forests == plain CPU builds from the same CDF bits; "
+          "Table 1 counts and convergence histograms == the plain CPU path", flush=True)
+
+
+MAP_H, MAP_W = 2048, 4096   # env_map_2d: a 4K equirectangular HDR map, 8.4M texels
+MAP_SLOTS = 1 << 16         # device QMC 2-D stream slots
+MAP_DRAWS = 1 << 20         # slot occurrences a drain
+MAP_DRAINS = 8
+MAP_DIRTY = 64              # rows an update touches
+MAP_REQUESTS = 16           # prior2d requests through the engine
+RAGGED_ROWS = 2048          # the multi-class map: widths 8..4096
+
+
+def ragged_map(rows: int, seed: int) -> list[np.ndarray]:
+    """Seeded rows of widths 8..4096 (log-uniform: every power-of-two class
+    from 8 to 4096), weights ``rng.random(w)**4 + 1e-6``, every 97th row
+    all-zero."""
+    rng = np.random.default_rng(seed)
+    widths = np.round(2.0 ** rng.uniform(3, 12, rows)).astype(np.int64)
+    out = [rng.random(int(w)) ** 4 + 1e-6 for w in widths]
+    for r in range(0, rows, 97):
+        out[r] = np.zeros(len(out[r]))
+    return out
+
+
+def map_state(m) -> dict:
+    """CPU copies of a ``Map2DSampler``'s forests and per-row lane tables."""
+    from repro_torch.core import RadixForest
+    from repro_torch.pool import BatchedForest
+
+    def host(ts):
+        return [t.to("cpu", copy=True) for t in ts]
+
+    return dict(marg=RadixForest(*host(m.forest)),
+                forests=[BatchedForest(*host(c.forest)) for c in m.classes.values()],
+                lanes=host((m._group_t, m._slot_t, m._hi_t)))
+
+
+def plain_map_drain(state: dict, u: np.ndarray, v: np.ndarray):
+    """A map drain by the plain versions on CPU copies of the card's arrays."""
+    from repro_torch.core import sample_forest
+    from repro_torch.kernels import ops
+
+    row = sample_forest(state["marg"], u, device="cpu")
+    r = row.long()
+    g, s, hi = (t[r] for t in state["lanes"])
+    col = torch.empty_like(row)
+    ops.forest_sample_grouped(state["forests"], (None if len(state["forests"]) == 1 else g,
+                                                 s, hi), col, xi=torch.as_tensor(v))
+    return row.numpy(), col.numpy()
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def map2d_path(device, H=MAP_H, W=MAP_W, n_slots=MAP_SLOTS, n_draws=MAP_DRAWS,
+               n_drains=MAP_DRAINS, n_dirty=MAP_DIRTY, n_requests=MAP_REQUESTS,
+               ragged_rows=RAGGED_ROWS) -> dict:
+    """The 2-D map path at full width: a ``SpatialSampler`` over
+    ``env_map_2d(H, W)`` (one size class: the fused drain) with ``n_slots``
+    device QMC slots, ``n_drains`` drains of ``n_draws`` slot occurrences,
+    the fused drain once under ``set_sync_debug_mode("error")``, an
+    ``update`` of ``n_dirty`` rows in each form, one more drain, a snapshot
+    and restore; a ragged map over every class 8..4096 (the multi-class
+    drain), two drains; a prior-only ``ServeEngine`` serving ``n_requests``
+    ``prior2d`` requests on the 4K map. Returns what the checks read."""
+    from repro_torch.configs.paper_workloads import env_map_2d
+    from repro_torch.serve import Qmc2Streams, Request, ServeEngine, SpatialSampler
+
+    rng = np.random.default_rng(21)
+    img = env_map_2d(H, W, seed=0)
+    rec = dict(img=img, drains=[], n_dirty=n_dirty)
+
+    def slots_of(n):
+        s = rng.integers(0, n_slots, n)
+        s[:64] = s[64:128]  # duplicate slots in every drain
+        return s
+
+    sampler, dt = timed(lambda: SpatialSampler(img, n_slots=n_slots, seed=0, device=device))
+    m = sampler.map
+    print(f"map2d: SpatialSampler over env_map_2d({H}, {W}) ({H * W} texels, classes "
+          f"{list(m.classes)}) built in {dt * 1e3:.3f} ms (host clock, synchronized)",
+          flush=True)
+    rec["state0"] = map_state(m)
+    twin = Qmc2Streams(n_slots, seed=0)
+    times = []
+    for _ in range(n_drains):
+        s = slots_of(n_draws)
+        (r, c), dt = timed(lambda: sampler.sample(s))
+        times.append(dt)
+        rec["drains"].append(("state0", *twin.next(s), r, c))
+    check(np.array_equal(sampler.streams.counters.cpu().numpy().view(np.uint32), twin.counters),
+          "map2d: device 2-D stream counters == host Qmc2Streams")
+    med = statistics.median(times)
+    print(f"map2d drain: {n_draws} draws in {med * 1e3:.3f} ms, {n_draws / med:.6e} draws/s "
+          f"(median of {n_drains}; host clock, slots in, texels out; last_drain "
+          f"{m.last_drain})", flush=True)
+
+    s = slots_of(n_draws)
+    u, v = sampler.streams.draw(s)
+    pts = twin.next(s)
+    check(np.array_equal(u.cpu().numpy(), pts[0]) and np.array_equal(v.cpu().numpy(), pts[1]),
+          "map2d: device 2-D stream points == host Qmc2Streams")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        row, col, _, _ = m.sample_map((u, v))
+        try:  # the control: a host read in the same mode is refused
+            row[0].item()
+            caught = False
+        except RuntimeError:
+            caught = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(caught or not row.is_cuda, "set_sync_debug_mode('error') refuses a host read")
+    rec["drains"].append(("state0", *pts, row.cpu().numpy(), col.cpu().numpy()))
+    print("map2d: the fused drain (B1, the slot gather, B5 with the width clip) ran under "
+          "torch.cuda.set_sync_debug_mode('error'): no host synchronization", flush=True)
+
+    lat = {}
+    for form in ("weights", "delta"):
+        rows = rng.choice(H, n_dirty, replace=False)
+        if form == "weights":
+            upd = {int(r): img[r] * rng.uniform(0.5, 2.0, W) for r in rows}
+        else:
+            upd = {int(r): rng.random(W) * img[r].mean() for r in rows}
+        st, dt = timed(lambda: sampler.update(upd, delta=form == "delta"))
+        lat[form] = (dt, st)
+        print(f"map2d update ({form}, {n_dirty} rows): {dt * 1e3:.3f} ms (host clock, "
+              f"synchronized); {st}", flush=True)
+    rec["update"] = lat
+    rec["state1"] = map_state(m)
+    s = slots_of(n_draws)
+    r, c = sampler.sample(s)
+    rec["drains"].append(("state1", *twin.next(s), r, c))
+    rec["rows_now"] = [w.copy() for w in m.rows_raw]
+
+    restored = SpatialSampler.restore(sampler.snapshot(), device=device)
+    s = slots_of(n_draws)
+    rec["restore"] = (sampler.sample_flat(s), restored.sample_flat(s))
+    twin.next(s)
+    rec["sampler"] = sampler
+    del restored
+
+    rows = ragged_map(ragged_rows, seed=22)
+    rs, dt = timed(lambda: SpatialSampler(rows, n_slots=n_slots, seed=1, device=device))
+    print(f"map2d: SpatialSampler over a ragged map of {ragged_rows} rows "
+          f"({sum(len(w) for w in rows)} texels, classes {list(rs.map.classes)}) built in "
+          f"{dt * 1e3:.3f} ms (host clock, synchronized)", flush=True)
+    rec["ragged"] = dict(state=map_state(rs.map), rows=rows, n_classes=len(rs.map.classes))
+    rtwin = Qmc2Streams(n_slots, seed=1)
+    for _ in range(2):
+        s = slots_of(n_draws)
+        (r, c), dt = timed(lambda: rs.sample(s))
+        rec["drains"].append(("ragged", *rtwin.next(s), r, c))
+    rec["ragged"]["last_drain"] = dict(rs.map.last_drain)
+    print(f"map2d ragged drain: {n_draws} draws in {dt * 1e3:.3f} ms, {n_draws / dt:.6e} draws/s "
+          f"(host clock); last_drain {rs.map.last_drain}", flush=True)
+    del rs
+
+    eng = ServeEngine(None, None, n_slots=n_requests, device=device)
+    reqs = [Request(rid=i, prompt=np.zeros(0, np.int64), max_new=8, prior2d=img)
+            for i in range(n_requests)]
+    for q in reqs:
+        eng.submit(q)
+    _, dt = timed(lambda: eng.run(max_steps=100))
+    rec["engine"] = reqs
+    print(f"map2d engine: {n_requests} prior2d requests x 8 texels in {eng.steps} steps, "
+          f"{dt * 1e3:.3f} ms (host clock, map build included)", flush=True)
+    return rec
+
+
+def map2d_checks(rec: dict, device) -> None:
+    """Every drain against the plain versions at the same points on CPU copies
+    of the card's arrays; the card's builds against the plain CPU builds
+    from the same CDF bits; the updated map bit-equal to a fresh build; the
+    snapshot's next drain; a chi-square over 64 x 64 texel blocks; the
+    engine's tokens."""
+    from repro_torch.core import forest_from_cdf
+    from repro_torch.core.metrics import chi2_statistic
+    from repro_torch.spatial import Map2DSampler
+
+    img = rec["img"]
+    H, W = img.shape
+    states = {"state0": rec["state0"], "state1": rec["state1"], "ragged": rec["ragged"]["state"]}
+    for i, (key, u, v, r, c) in enumerate(rec["drains"]):
+        pr, pc = plain_map_drain(states[key], u, v)
+        check(np.array_equal(pr, r) and np.array_equal(pc, c),
+              f"map2d drain {i} ({key}) == the plain versions at the same points")
+    for key in ("state0", "state1"):
+        st = states[key]
+        plain = forest_from_cdf(st["marg"].cdf, st["marg"].m, device="cpu")
+        check(all(torch.equal(a, b) for a, b in zip(st["marg"], plain)),
+              f"map2d {key}: marginal == plain CPU build")
+        f = st["forests"][0]
+        sel = torch.as_tensor(np.random.default_rng(5).choice(H, 64, replace=False))
+        plain = forest_from_cdf(f.cdf[sel], f.m, device="cpu")
+        check(all(torch.equal(a[sel], b) for a, b in zip(f, plain)),
+              f"map2d {key}: 64 class rows == plain CPU build")
+    m = rec["sampler"].map
+    fresh = Map2DSampler(rec["rows_now"], device=device)
+    check(all(torch.equal(a, b) for a, b in zip(m.forest, fresh.forest))
+          and all(torch.equal(a, b) for wc in m.classes
+                  for a, b in zip(m.classes[wc].forest, fresh.classes[wc].forest)),
+          "map2d: updated map == a fresh build over the new rows")
+    del fresh
+    st = rec["update"]
+    check(st["weights"][1]["rebuilt_rows"] + st["weights"][1]["skipped_rows"] == rec["n_dirty"]
+          and st["weights"][1]["marginal_rebuilt"], "map2d update stats")
+    a, b = rec["restore"]
+    check(np.array_equal(a, b), "map2d: restored sampler drains equal")
+
+    flat = np.concatenate([r.astype(np.int64) * W + c for key, _u, _v, r, c in rec["drains"]
+                           if key == "state0"])
+    by, bx = H // 64, W // 64
+    blocks = (flat // W // by) * 64 + (flat % W) // bx
+    counts = np.bincount(blocks, minlength=64 * 64)
+    mass = img.reshape(64, by, 64, bx).sum(axis=(1, 3)).ravel()
+    chi2 = chi2_statistic(counts, mass / mass.sum())
+    dof = 64 * 64 - 1
+    limit = dof + 6.0 * np.sqrt(2.0 * dof)
+    print(f"map2d chi-square over 64 x 64 texel blocks, {len(flat)} draws: {chi2:.3f} "
+          f"(dof {dof}, limit {limit:.3f})", flush=True)
+    check(chi2 < limit, "map2d chi-square")
+
+    rr = rec["ragged"]
+    check(rr["n_classes"] >= 8 and rr["last_drain"]["launches"] == 1
+          and not rr["last_drain"]["fused"], "ragged map: >= 8 classes, one grouped launch")
+    zero = {i for i, w in enumerate(rr["rows"]) if w.sum() == 0}
+    for key, _u, _v, r, c in rec["drains"]:
+        if key == "ragged":
+            check(not np.isin(r, list(zero)).any(), "ragged map: zero-mass rows never drawn")
+            check(bool((c < np.asarray([len(rr["rows"][i]) for i in r])).all()),
+                  "ragged map: columns within their rows")
+    for q in rec["engine"]:
+        out = np.asarray(q.out)
+        check(q.done and q.error is None and len(out) == 8 and bool(((out >= 0)
+              & (out < H * W)).all()), f"engine prior2d request {q.rid}")
+    print(f"map2d: {len(rec['drains'])} drains == the plain versions at the same points; "
+          "card builds == plain CPU builds; update == fresh build; restore drains equal; "
+          f"{len(rec['engine'])} engine requests served", flush=True)
+
+
+def map2d_profile(rec: dict) -> None:
+    """Device idle share and heaviest kernels of one drain of the 4K map."""
+    sampler = rec["sampler"]
+    s = np.random.default_rng(3).integers(0, MAP_SLOTS, MAP_DRAWS)
+    profile_calls((("map2d drain", lambda: sampler.sample(s)),))
 
 
 # ---------------------------------------------------------------------------
@@ -1983,6 +2318,15 @@ def run(build_s: float) -> dict:
               flush=True)
 
     counted("main", main_path, device, weights, m, n_draws, gen)
+    counted("paper", paper_path, device)
+    paper_checks(device)
+    mrec = counted("map2d", map2d_path, device)
+    for name in ("cdf_scan", "forest_delta", "forest_sample", "forest_pack",
+                 "forest_delta_update", "forest_sample_batched"):
+        check(counts["map2d"][name] > 0, f"{name} launched on the map2d path")
+    map2d_checks(mrec, device)
+    map2d_profile(mrec)
+    del mrec
     rec = counted("pool", pool_path, device)
     stream_drains = POOL_STREAM_DRAINS + 1  # and one host-uniform drain
     check((counts["pool"]["forest_sample_batched_streams"], counts["pool"]["alias_sample_batched"],
@@ -2026,6 +2370,8 @@ def run(build_s: float) -> dict:
     train_launcher(ckpt_root)
 
     profiled("main", main_path, device, weights, m, n_draws, gen)
+    profiled("paper", paper_path, device)
+    profiled("map2d", map2d_path, device)
     profiled("pool", pool_path, device)
     profiled("serve", serve_path, device, cfg)
     profiled("eval", eval_path, device, tcfg)

@@ -7,6 +7,13 @@ from .cdf import (
     normalize_weights,
     np_build_cdf,
 )
+from .counting import (
+    np_sample_binary_counting,
+    np_sample_cutpoint_binary_counting,
+    np_sample_forest_counting,
+    table1_row,
+    warp_cost,
+)
 from .forest import (
     INVALID,
     MAX_DEPTH,
@@ -19,7 +26,20 @@ from .forest import (
     forest_to_numpy,
     validate_forest,
 )
-from .metrics import chi2_statistic, histogram
+from .forest2d import (
+    RowForest,
+    build_forest_rows,
+    np_reference_rows,
+    sample_forest_rows,
+    validate_forest_rows,
+)
+from .metrics import (
+    chi2_statistic,
+    histogram,
+    quadratic_error,
+    star_discrepancy_1d,
+    warped_uniformity_1d,
+)
 from .sample import (
     pack_forest,
     sample_binary,

@@ -10,7 +10,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import to_device
-from repro_torch.kernels.forest_sample import PackedForest, forest_pack, forest_sample
+from repro_torch.kernels.forest_sample import (
+    PACK_MAX_N,
+    PackedForest,
+    forest_pack,
+    forest_sample,
+)
 
 from .forest import MAX_DEPTH, RadixForest
 
@@ -82,7 +87,9 @@ def pack_forest(forest: RadixForest) -> PackedForest:
 class PackedForestHolder:
     """Base of the samplers that hold one forest: setting ``forest`` packs
     it (``_packed``, for :func:`sample_forest`), so no draw reads the pack
-    of a forest that was replaced."""
+    of a forest that was replaced. A forest of ``PACK_MAX_N`` or more
+    intervals has no pack (``_packed`` None): the descent reads its six
+    arrays."""
 
     @property
     def forest(self) -> RadixForest:
@@ -91,7 +98,7 @@ class PackedForestHolder:
     @forest.setter
     def forest(self, forest: RadixForest) -> None:
         self._forest = forest
-        self._packed = pack_forest(forest)
+        self._packed = pack_forest(forest) if forest.n < PACK_MAX_N else None
 
 
 def sample_forest(

@@ -43,6 +43,7 @@ _SIGNATURES = {
     "rt_cdf_scan": (_P, _P, *(_I,) * 10, _P),
     "rt_forest_delta": (_P, _P, _I, _I, _P),
     "rt_forest_sample": (*(_P,) * 6, _I, _I, _I, _P),
+    "rt_forest_sample_wide": (*(_P,) * 8, _I, _I, _I, _P),
     "rt_forest_pack": (*(_P,) * 7, _I, _I, _P),
     "rt_forest_delta_update": (_P, _P, _P, _P, _I, _I, _P),
     "rt_forest_sample_grouped": (

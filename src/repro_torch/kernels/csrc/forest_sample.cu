@@ -86,6 +86,36 @@ __global__ void __launch_bounds__(RT_B1_THREADS) forest_sample_kernel(
     __stcs(out + t, ~j);
 }
 
+// The same descent over the six arrays, for forests of 2^30 or more
+// intervals, whose node ids the packed guide entry cannot hold beside its
+// flag bit (the wrapper chooses this body from n alone). Reads as the body
+// before the packed layout did: the guide entry, the flag byte, then cdf[j]
+// and the chosen child a level. The bisection's midpoint is taken in 32
+// unsigned bits: lo + hi + 1 reaches 2^31 near the end of such a forest.
+__global__ void __launch_bounds__(RT_B1_THREADS) forest_sample_wide_kernel(
+    const float* __restrict__ cdf, const int* __restrict__ table,
+    const int* __restrict__ left, const int* __restrict__ right,
+    const int* __restrict__ cell_first, const bool* __restrict__ fallback,
+    const float* __restrict__ xi, int* __restrict__ out, int m, int B, int use_fallback) {
+    const int t = blockIdx.x * RT_B1_THREADS + threadIdx.x;
+    if (t >= B) return;
+    const float x = __ldcs(xi + t);
+    const int g = rt_guide_cell(x, m);
+    int j = __ldg(table + g);
+    if (use_fallback && j >= 0 && __ldg((const unsigned char*)fallback + g)) {
+        int lo = __ldg(cell_first + g);
+        int hi = __ldg(cell_first + g + 1);
+        for (int s = 0; s < 32; ++s) {
+            const int mid = (int)(((unsigned)lo + (unsigned)hi + 1u) >> 1);
+            if (x >= __ldg(cdf + mid)) lo = mid; else hi = mid - 1;
+        }
+        j = ~lo;
+    }
+    for (int it = 0; it < RT_MAX_DEPTH && j >= 0; ++it)
+        j = x < __ldg(cdf + j) ? __ldg(left + j) : __ldg(right + j);
+    __stcs(out + t, ~j);
+}
+
 // The layout forest_sample reads, from the six arrays: guide[g] = table[g]
 // with bit 30 set where the cell holds a tree and is flagged; nodes[j] =
 // (bits of cdf[j], left[j], right[j], 0).
@@ -108,6 +138,18 @@ RT_API int rt_forest_sample(const void* guide, const void* nodes, const void* cd
     forest_sample_kernel<<<blocks, RT_B1_THREADS, 0, (cudaStream_t)stream>>>(
         (const int*)guide, (const int4*)nodes, (const float*)cdf, (const int*)cell_first,
         (const float*)xi, (int*)out, m, B, use_fallback);
+    return (int)cudaGetLastError();
+}
+
+RT_API int rt_forest_sample_wide(const void* cdf, const void* table, const void* left,
+                                 const void* right, const void* cell_first,
+                                 const void* fallback, const void* xi, void* out, int m,
+                                 int B, int use_fallback, void* stream) {
+    const int blocks = (B + RT_B1_THREADS - 1) / RT_B1_THREADS;
+    forest_sample_wide_kernel<<<blocks, RT_B1_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)cdf, (const int*)table, (const int*)left, (const int*)right,
+        (const int*)cell_first, (const bool*)fallback, (const float*)xi, (int*)out, m, B,
+        use_fallback);
     return (int)cudaGetLastError();
 }
 

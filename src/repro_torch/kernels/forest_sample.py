@@ -8,7 +8,10 @@ with :func:`repro_torch.core.sample.sample_forest`. The kernel reads the
 forest as :func:`forest_pack` lays it out (the fallback flag folded into the
 guide entry, a node's split and children in one 16-byte record), which the
 samplers make once per forest; it always reads ``cell_first`` for flagged
-cells, so no host round trip decides whether any cell is flagged.
+cells, so no host round trip decides whether any cell is flagged. A forest
+of ``PACK_MAX_N`` (2^30) or more intervals has node ids that collide with
+the pack's flag bit: for it the wrapper launches the six-array body
+(``forest_sample_wide_kernel``), chosen from n alone, and no pack is made.
 
 :func:`forest_sample_batched` is the multi-distribution form (the pool's
 drain): lane ``q`` walks row ``dist_id[q]`` of B stacked forests, and
@@ -113,9 +116,9 @@ def forest_sample(
 
     ``packed`` is :func:`forest_pack` of these arrays; the kernel reads it
     (and ``cdf`` and ``cell_first`` in flagged cells), and packs on the way
-    where it is not given. The plain version reads the six arrays."""
+    where it is not given. A forest of 2^30 or more intervals takes the
+    six-array body and no pack. The plain version reads the six arrays."""
     n, m = left.shape[0], table.shape[0]
-    _check_n("forest_sample", n)
     spec = (
         ("cdf", cdf, torch.float32, (n + 1,)),
         ("table", table, torch.int32, (m,)),
@@ -127,6 +130,7 @@ def forest_sample(
     )
     _check_spec("forest_sample", spec, xi.device)
     if packed is not None:
+        _check_n("forest_sample", n)
         _check_spec("forest_sample", (
             ("packed.guide", packed.guide, torch.int32, (m,)),
             ("packed.nodes", packed.nodes, torch.int32, (n, 4)),
@@ -137,6 +141,14 @@ def forest_sample(
     B = xi.shape[0]
     out = torch.empty(B, dtype=torch.int32, device=xi.device)
     if B == 0:
+        return out
+    if n >= PACK_MAX_N:
+        args = [t.contiguous() for t in (cdf, table, left, right, cell_first, fallback, xi)]
+        err = _build.library().rt_forest_sample_wide(
+            *(t.data_ptr() for t in args), out.data_ptr(), m, B, int(use_fallback),
+            _build.stream_of(xi))
+        _build.check(err, "forest_sample")
+        forest_sample.launches += 1
         return out
     if packed is None:
         packed = forest_pack(cdf, table, left, right, fallback)

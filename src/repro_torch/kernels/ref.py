@@ -68,13 +68,12 @@ def ref_forest_sample(
         fb = fallback[g] & (j >= 0)
         bal = _bisect(cdf, xi, cell_first[g].long(), cell_first[g + 1].long(), 32)
         j = torch.where(fb, ~bal, j)
-    left, right = left.long(), right.long()
     for _ in range(MAX_DEPTH):
         active = j >= 0
         if not bool(active.any()):
             break
         jj = torch.clamp(j, 0, n - 1)
-        nxt = torch.where(xi < cdf[jj], left[jj], right[jj])
+        nxt = torch.where(xi < cdf[jj], left[jj], right[jj]).long()
         j = torch.where(active, nxt, j)
     return (~j).to(torch.int32)
 

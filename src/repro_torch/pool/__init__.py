@@ -10,6 +10,7 @@ from .arena import AliasArena, ForestPool, Handle
 from .batched import (
     BatchedAlias,
     BatchedForest,
+    batched_from_row_forest,
     build_alias_batched,
     build_forest_batched,
     build_forest_batched_from_cdf,
@@ -23,6 +24,7 @@ __all__ = [
     "BatchedForest",
     "ForestPool",
     "Handle",
+    "batched_from_row_forest",
     "build_alias_batched",
     "build_forest_batched",
     "build_forest_batched_from_cdf",

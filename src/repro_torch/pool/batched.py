@@ -90,6 +90,21 @@ def build_forest_batched(
                                          fallback_slack, device=device)
 
 
+def batched_from_row_forest(rows, cdf_rows) -> BatchedForest:
+    """A flat :class:`repro_torch.core.forest2d.RowForest` as a
+    :class:`BatchedForest`: the one-pass multi-row build feeding the batched
+    descent. The flat layout's global references become row-local by a
+    per-row offset (``v - r*W`` for a node id, ``v + r*W`` for a leaf
+    ``~i``). ``cdf_rows`` must be the (R, W+1) CDF stack the forest was built
+    from: the descent compares against the unclamped CDF, as a single build
+    does. Row ``r`` is bit-equal to ``forest_from_cdf(cdf_rows[r], m)``,
+    fallback flags included."""
+    from repro_torch.core.forest2d import row_local
+
+    cdf = to_device(cdf_rows, rows.data.device, torch.float32)
+    return BatchedForest(*row_local(rows, cdf))
+
+
 def sample_forest_batched(forest: BatchedForest, dist_id, xi,
                           coalesce: bool = True) -> torch.Tensor:
     """Draw ``q`` resolves ``xi[q]`` in distribution ``dist_id[q]``'s tree,

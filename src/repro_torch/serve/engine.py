@@ -12,7 +12,11 @@ A request may carry its own static categorical (``Request.prior``): it
 bypasses the model, joins a :class:`PooledForestSampler`'s pool on admit,
 drains with every other prior-backed slot in one batched pool call per step,
 and its tenant is evicted on retirement. With ``params=None`` the engine
-serves prior traffic only. ``Request.prior2d`` (2-D maps) is not ported yet.
+serves prior traffic only. A request may instead carry ``Request.prior2d``,
+an environment or density map: every such request shares the engine's one
+:class:`SpatialSampler` (the first one's map; later ones must carry the same
+map), all of them drain in one ``sample_flat`` call per step, and each
+emitted token is a flat texel id.
 
 The port of the JAX package's ``serve/engine.py``; snapshots are the same
 dicts, so a JAX engine snapshot, model-backed or not, restores here.
@@ -31,10 +35,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.robust.errors import RequestError, ServingError
 from repro_torch.robust.validate import classify_weights
 
-from .sampler import PooledForestSampler, TokenSampler
-
-_NO_SPATIAL = ("2-D map requests (prior2d) need SpatialSampler, not ported "
-               "yet (ROADMAP A5)")
+from .sampler import PooledForestSampler, SpatialSampler, TokenSampler
 
 
 @dataclasses.dataclass
@@ -46,7 +47,9 @@ class Request:
     prior: np.ndarray | None = None  # per-request categorical (pool path)
     # sampling method of the prior's pool slot: "forest", "alias" or "auto"
     method: str = "auto"
-    prior2d: Any | None = None       # 2-D map request (not ported: raises)
+    # 2-D map request: the engine's shared map (every prior2d request must
+    # carry the same one); tokens are flat texel ids
+    prior2d: Any | None = None
     out: list[int] = dataclasses.field(default_factory=list)
     done: bool = False
     # set when the engine retires the request on a fault instead of serving
@@ -63,6 +66,7 @@ class ServeEngine:
     def __init__(self, params: Any, cfg: ModelConfig | None, n_slots: int = 8,
                  max_seq: int = 512, sampler: TokenSampler | None = None,
                  prior_sampler: PooledForestSampler | None = None,
+                 spatial_sampler: SpatialSampler | None = None,
                  on_fault: str = "raise", device="cuda"):
         if on_fault not in ("raise", "retire"):
             raise ValueError(f"on_fault must be 'raise' or 'retire', got {on_fault!r}")
@@ -75,6 +79,8 @@ class ServeEngine:
         self.sampler = sampler or TokenSampler(n_slots=n_slots, device=self.device)
         self.prior_sampler = prior_sampler
         self.prior_handles: dict[int, Any] = {}  # slot -> pool Handle
+        self.spatial_sampler = spatial_sampler
+        self.spatial_slots: set[int] = set()  # slots on the 2-D map drain
         self.queue: deque[Request] = deque()
         self.slots: list[Request | None] = [None] * n_slots
         if params is not None:
@@ -101,15 +107,40 @@ class ServeEngine:
                 raise RequestError(f"request {req.rid}: prior {e.code}: {e}") from None
             if code is not None and self._prior_policy() == "reject":
                 raise RequestError(f"request {req.rid}: prior {code}")
+        if req.prior2d is not None:
+            try:
+                rows = [np.asarray(r, np.float64) for r in req.prior2d]
+            except (TypeError, ValueError) as e:
+                raise RequestError(f"request {req.rid}: prior2d bad_dtype: {e}") from None
+            if not rows or any(r.ndim != 1 or r.size == 0 for r in rows):
+                raise RequestError(
+                    f"request {req.rid}: prior2d bad_shape: want non-empty 1-D rows")
+            for r in rows:
+                _, code = classify_weights(r, allow_zero_total=True)
+                if code is not None:
+                    raise RequestError(f"request {req.rid}: prior2d {code}")
+            if self.spatial_sampler is not None:
+                have = self.spatial_sampler.map.rows_raw
+                if len(rows) != len(have) or any(
+                        a.shape != b.shape for a, b in zip(rows, have)):
+                    raise RequestError(
+                        f"request {req.rid}: prior2d map_mismatch: shape differs "
+                        "from the engine's shared map")
 
     def submit(self, req: Request) -> None:
-        if req.prior2d is not None:
-            raise NotImplementedError(_NO_SPATIAL)
-        if req.prior is None and self.params is None:
+        if req.prior is not None and req.prior2d is not None:
+            raise RequestError("a request carries prior OR prior2d, not both")
+        if req.prior is None and req.prior2d is None and self.params is None:
             raise RequestError(
                 "engine has no model (params=None); submit prior-backed requests only")
         self._validate(req)
         self.queue.append(req)
+
+    def _same_map(self, img) -> bool:
+        rows = [np.asarray(r, np.float64) for r in img]
+        have = self.spatial_sampler.map.rows_raw
+        return len(rows) == len(have) and all(
+            a.shape == b.shape and np.array_equal(a, b) for a, b in zip(rows, have))
 
     def _fail_request(self, s: int, err: Exception) -> None:
         """Retire one request with a structured ``error``; the slot frees
@@ -120,6 +151,37 @@ class ServeEngine:
             req.done = True
         self.slots[s] = None
         self.prior_handles.pop(s, None)
+        self.spatial_slots.discard(s)
+
+    def _admit_spatial(self, admitted: list[tuple[int, Request]]) -> None:
+        """2-D admission wave: the first ``prior2d`` request makes the
+        engine's :class:`SpatialSampler`; later ones must carry the same map
+        (a per-request map belongs in the pool path). The wave draws its
+        first texels in one ``sample_flat`` drain."""
+        if self.spatial_sampler is None:
+            self.spatial_sampler = SpatialSampler(
+                admitted[0][1].prior2d, n_slots=self.n_slots, device=self.device)
+        kept = []
+        for s, req in admitted:
+            if not self._same_map(req.prior2d):
+                err = RequestError(
+                    f"request {req.rid}: prior2d differs from the engine's shared "
+                    "map; per-request distributions go through Request.prior (the "
+                    "pool path)")
+                if self.on_fault == "retire":
+                    self._fail_request(s, err)
+                    continue
+                self.slots[s] = None
+                raise err
+            self.spatial_slots.add(s)
+            kept.append((s, req))
+        if not kept:
+            return
+        toks = self.spatial_sampler.sample_flat(np.asarray([s for s, _ in kept]))
+        for (s, req), tok in zip(kept, toks):
+            self.pos[s] = 0
+            self.last_tok[s] = int(tok)
+            req.out.append(int(tok))
 
     def _admit_priors(self, admitted: list[tuple[int, Request]]) -> None:
         """Prior-backed admission wave: no prefill, no KV; the wave joins the
@@ -176,16 +238,21 @@ class ServeEngine:
 
     def _admit(self) -> None:
         priors: list[tuple[int, Request]] = []
+        spatial: list[tuple[int, Request]] = []
         for s in range(self.n_slots):
             if self.slots[s] is None and self.queue:
                 req = self.queue.popleft()
                 self.slots[s] = req
                 if req.prior is not None:
                     priors.append((s, req))
+                elif req.prior2d is not None:
+                    spatial.append((s, req))
                 else:
                     self._prefill(s, req)
         if priors:
             self._admit_priors(priors)
+        if spatial:
+            self._admit_spatial(spatial)
 
     def _retire(self) -> None:
         for s, req in enumerate(self.slots):
@@ -194,8 +261,9 @@ class ServeEngine:
             if (
                 len(req.out) >= req.max_new
                 or (req.eos is not None and req.out and req.out[-1] == req.eos)
-                # max_seq is a KV budget; prior-backed slots hold no KV
-                or (s not in self.prior_handles and self.pos[s] >= self.max_seq - 1)
+                # max_seq is a KV budget; prior and 2-D slots hold no KV
+                or (s not in self.prior_handles and s not in self.spatial_slots
+                    and self.pos[s] >= self.max_seq - 1)
             ):
                 req.done = True
                 self.slots[s] = None
@@ -208,21 +276,27 @@ class ServeEngine:
                         # slot frees either way
                         if self.on_fault != "retire":
                             raise
+                # a 2-D slot holds no handle (the map is shared): it just
+                # leaves the drain set, and its stream keeps its counter
+                self.spatial_slots.discard(s)
 
     def step(self) -> None:
         self._admit()
         active = [s for s, r in enumerate(self.slots) if r is not None]
         if not active:
             return
-        model_slots = [s for s in active if s not in self.prior_handles]
+        model_slots = [s for s in active
+                       if s not in self.prior_handles and s not in self.spatial_slots]
         prior_slots = [s for s in active if s in self.prior_handles]
+        spatial_slots = [s for s in active if s in self.spatial_slots]
         if model_slots:
             from repro_torch.models import decode_step
 
             # decode writes every row at its own pos, so idle slots overwrite
             # their own stale cell; only the active rows are sampled. Every
             # row that is not a model slot feeds token 0: its last_tok may be
-            # a pool index (a live or retired prior) beyond the vocabulary.
+            # a pool index or a flat texel id (a live or retired prior or 2-D
+            # request) beyond the vocabulary.
             tokens = np.zeros_like(self.last_tok)
             tokens[model_slots] = self.last_tok[model_slots]
             logits, self.cache = decode_step(self.params, self.cfg, self.cache,
@@ -254,6 +328,13 @@ class ServeEngine:
                 self.last_tok[s] = tok
                 # pos stays 0: prior slots hold no KV, and pos is decode's
                 # write index for every row
+        if spatial_slots:
+            # every 2-D slot in one sample_flat drain; pos stays 0 as above
+            toks = self.spatial_sampler.sample_flat(np.asarray(spatial_slots))
+            for i, s in enumerate(spatial_slots):
+                tok = int(toks[i])
+                self.slots[s].out.append(tok)
+                self.last_tok[s] = tok
         self._retire()
         self.steps += 1
 
@@ -270,7 +351,9 @@ class ServeEngine:
         return dict(
             rid=r.rid, prompt=np.asarray(r.prompt), max_new=r.max_new, eos=r.eos,
             prior=None if r.prior is None else np.asarray(r.prior, np.float64),
-            method=r.method, prior2d=None,
+            method=r.method,
+            prior2d=None if r.prior2d is None
+            else [np.asarray(row, np.float64) for row in r.prior2d],
             out=list(r.out), done=r.done, error=r.error,
         )
 
@@ -278,13 +361,13 @@ class ServeEngine:
     def _req_restore(d) -> Request | None:
         if d is None:
             return None
-        if d.get("prior2d") is not None:
-            raise NotImplementedError(_NO_SPATIAL)
         return Request(
             rid=int(d["rid"]), prompt=np.asarray(d["prompt"]),
             max_new=int(d["max_new"]), eos=d["eos"],
             prior=None if d["prior"] is None else np.asarray(d["prior"]),
             method=d["method"],
+            prior2d=None if d.get("prior2d") is None
+            else [np.asarray(row) for row in d["prior2d"]],
             out=[int(t) for t in d["out"]], done=bool(d["done"]), error=d["error"],
         )
 
@@ -302,11 +385,12 @@ class ServeEngine:
             queue=[self._req_state(r) for r in self.queue],
             slots=[self._req_state(r) for r in self.slots],
             prior_handles={int(s): tuple(h) for s, h in self.prior_handles.items()},
-            spatial_slots=set(),
+            spatial_slots=set(self.spatial_slots),
             sampler=self.sampler.snapshot(),
             prior_sampler=None if self.prior_sampler is None
             else self.prior_sampler.snapshot(),
-            spatial_sampler=None,
+            spatial_sampler=None if self.spatial_sampler is None
+            else self.spatial_sampler.snapshot(),
             cache=None if self.cache is None else cache_to_leaves(self.cache),
         )
 
@@ -323,8 +407,6 @@ class ServeEngine:
             raise ValueError(f"not a ServeEngine snapshot: {state.get('kind')!r}")
         if state["has_model"] and params is None:
             raise ValueError("snapshot was model-backed: pass params and cfg")
-        if state.get("spatial_sampler") is not None or state.get("spatial_slots"):
-            raise NotImplementedError(_NO_SPATIAL)
         eng = cls(params if state["has_model"] else None, cfg,
                   n_slots=int(state["n_slots"]), max_seq=int(state["max_seq"]),
                   on_fault=state.get("on_fault", "raise"), device=device)
@@ -337,10 +419,14 @@ class ServeEngine:
             int(s): Handle(int(h[0]), int(h[1]), int(h[2]), int(h[3]), str(h[4]))
             for s, h in state["prior_handles"].items()
         }
+        eng.spatial_slots = {int(s) for s in state.get("spatial_slots", ())}
         eng.sampler = TokenSampler.restore(state["sampler"], device=eng.device)
         if state["prior_sampler"] is not None:
             eng.prior_sampler = PooledForestSampler.restore(state["prior_sampler"],
                                                             device=eng.device)
+        if state.get("spatial_sampler") is not None:
+            eng.spatial_sampler = SpatialSampler.restore(state["spatial_sampler"],
+                                                         device=eng.device)
         if state["cache"] is not None and eng.cache is not None:
             eng.cache = cache_from_jax(state["cache"], cfg, eng.n_slots, eng.max_seq,
                                        eng.device)

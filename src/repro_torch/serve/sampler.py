@@ -5,12 +5,16 @@ pipeline of :mod:`repro_torch.core.lds`; same seed => bit-equal points and
 counters to the JAX package's). :class:`DeviceQmcStreams` keeps the same
 state as tensors on the card and advances it in one pre-pass per drain
 (:func:`_stream_prepass`), bit-equal to the oracle, duplicate slots
-included. :class:`ForestSampler` builds one radix forest on its device and
-inverts the CDF at the slots' stream points (monotone warp, so the
-stratification survives). :class:`PooledForestSampler` serves many small
-tenant distributions from one :class:`~repro_torch.pool.ForestPool`: QMC
-tenants drain through the stream-aware descent kernel, PRNG tenants through
-the alias kernels.
+included; :class:`Qmc2Streams` and :class:`DeviceQmc2Streams` are the 2-D
+pair (u the radical inverse, v Sobol' dimension 1, one counter a slot).
+:class:`ForestSampler` builds one radix forest on its device and inverts
+the CDF at the slots' stream points (monotone warp, so the stratification
+survives). :class:`PooledForestSampler` serves many small tenant
+distributions from one :class:`~repro_torch.pool.ForestPool`: QMC tenants
+drain through the stream-aware descent kernel, PRNG tenants through the
+alias kernels. :class:`SpatialSampler` serves one 2-D map
+(:class:`~repro_torch.spatial.Map2DSampler`) at the slots' 2-D stream
+points, which stay on the device between the streams and the drain.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ from repro_torch.core.cdf import normalize_weights, updated_weights
 from repro_torch.core.forest import build_forest
 from repro_torch.core.lds import (
     QMC_SCALE,
+    qmc2_point,
+    qmc2_point_np,
     qmc_bits24_np,
     qmc_offset_bits_np,
     qmc_point,
@@ -131,15 +137,14 @@ class ForestSampler(PackedForestHolder):
         return idx.cpu().numpy()
 
 
-def _stream_prepass(counters: torch.Tensor, offset_bits: torch.Tensor,
-                    slots: torch.Tensor):
-    """Device twin of one ``QmcStreams.next`` drain: per-occurrence rank
-    (stable sort, equal to ``_occurrence_rank_np``), per-lane rank-adjusted
-    counters and offsets, the drawn points, and the advanced per-slot
-    counters. The 32-bit state is int32 bit views in and out: sums are
-    taken in int64 and narrowed, which keeps the low 32 bits (the uint32
-    wrap). Sentinel lanes (``slots < 0``) draw a dead point and advance
-    nothing."""
+def _advance(counters: torch.Tensor, slots: torch.Tensor):
+    """The counter side of one stream drain on the device: per-occurrence
+    rank (stable sort, equal to ``_occurrence_rank_np``), each lane's
+    rank-adjusted counter and the advanced per-slot counters. The 32-bit
+    state is int32 bit views in and out: sums are taken in int64 and
+    narrowed, which keeps the low 32 bits (the uint32 wrap). Sentinel lanes
+    (``slots < 0``) get counter 0 and advance nothing. Returns ``(valid,
+    slot or 0, counter, new counters)``."""
     S, Q = counters.shape[0], slots.shape[0]
     valid = slots >= 0
     # sentinels sort after every real slot so they never perturb real ranks
@@ -150,12 +155,32 @@ def _stream_prepass(counters: torch.Tensor, offset_bits: torch.Tensor,
     rank = torch.empty(Q, dtype=torch.int64, device=slots.device)
     rank[order] = torch.arange(Q, device=slots.device) - first
     sl = torch.where(valid, slots, 0)
-    zero = torch.zeros(Q, dtype=torch.int32, device=slots.device)
-    ctr = torch.where(valid, (counters[sl].to(torch.int64) + rank).to(torch.int32), zero)
-    off = torch.where(valid, offset_bits[sl], zero)
+    ctr = torch.where(valid, (counters[sl].to(torch.int64) + rank).to(torch.int32), 0)
     new_counters = counters.to(torch.int64).index_add(
         0, sl, valid.to(torch.int64)).to(torch.int32)
+    return valid, sl, ctr, new_counters
+
+
+def _stream_prepass(counters: torch.Tensor, offset_bits: torch.Tensor,
+                    slots: torch.Tensor):
+    """Device twin of one ``QmcStreams.next`` drain (:func:`_advance`): the
+    per-lane counters and offsets, the drawn points, and the advanced
+    per-slot counters. Sentinel lanes draw a dead point."""
+    valid, sl, ctr, new_counters = _advance(counters, slots)
+    off = torch.where(valid, offset_bits[sl], 0)
     return ctr, off, qmc_point(ctr, off), new_counters
+
+
+def _stream_prepass2(counters: torch.Tensor, offset_u: torch.Tensor,
+                     offset_v: torch.Tensor, slots: torch.Tensor):
+    """Device twin of one ``Qmc2Streams.next`` drain, the 2-D sibling of
+    :func:`_stream_prepass` (same sentinel lanes and duplicate-slot ranks):
+    the points ``(u, v)`` and the advanced per-slot counters."""
+    valid, sl, ctr, new_counters = _advance(counters, slots)
+    ou = torch.where(valid, offset_u[sl], 0)
+    ov = torch.where(valid, offset_v[sl], 0)
+    u, v = qmc2_point(ctr, ou, ov)
+    return u, v, new_counters
 
 
 def _i32_bits(a: np.ndarray) -> np.ndarray:
@@ -218,16 +243,112 @@ class DeviceQmcStreams:
         return s
 
 
-def _restore_streams(state: dict | None, device):
-    """A 1-D stream snapshot back to its class by ``kind``."""
+class Qmc2Streams:
+    """Per-slot 2-D low-discrepancy streams (numpy, the oracle of the 2-D
+    pair): u is the base-2 radical inverse (Sobol' dim 0), v Sobol' dim 1,
+    each with its own per-slot rotation; one counter a slot drives both, so
+    a point is one sequence element. Same seed => bit-equal offsets,
+    counters and points to :class:`DeviceQmc2Streams` and to the JAX
+    package's."""
+
+    def __init__(self, n_slots: int, seed: int = 0):
+        rng = np.random.default_rng(seed)
+        self.offset_u = qmc_offset_bits_np(rng.random(n_slots))
+        self.offset_v = qmc_offset_bits_np(rng.random(n_slots))
+        self.counters = np.zeros(n_slots, np.uint32)
+
+    def next(self, slots: np.ndarray | None = None):
+        """One 2-D point per requested slot occurrence (duplicates get
+        consecutive points, as in :class:`QmcStreams`): ``(u, v)``
+        float32 arrays."""
+        if slots is None:
+            slots = np.arange(len(self.offset_u))
+        slots = np.asarray(slots)
+        ctr = self.counters[slots] + _occurrence_rank_np(slots)
+        u, v = qmc2_point_np(ctr, self.offset_u[slots], self.offset_v[slots])
+        np.add.at(self.counters, slots, 1)
+        return u, v
+
+    def snapshot(self) -> dict:
+        return dict(kind="qmc2_streams", offset_u=self.offset_u.copy(),
+                    offset_v=self.offset_v.copy(), counters=self.counters.copy())
+
+    @classmethod
+    def restore(cls, state: dict) -> "Qmc2Streams":
+        s = cls.__new__(cls)
+        s.offset_u = np.asarray(state["offset_u"], np.uint32).copy()
+        s.offset_v = np.asarray(state["offset_v"], np.uint32).copy()
+        s.counters = np.asarray(state["counters"], np.uint32).copy()
+        return s
+
+
+class DeviceQmc2Streams:
+    """Device twin of :class:`Qmc2Streams`: counters and both rotations live
+    on ``device`` as int32 bit views, and a drain advances them in
+    :func:`_stream_prepass2` with no host-side counter mutation. Same seed
+    => bit-equal points and counters to the host class."""
+
+    def __init__(self, n_slots: int, seed: int = 0, device="cuda"):
+        rng = np.random.default_rng(seed)
+        self.device = resolve(device)
+        self.offset_u = to_device(_i32_bits(qmc_offset_bits_np(rng.random(n_slots))),
+                                  self.device)
+        self.offset_v = to_device(_i32_bits(qmc_offset_bits_np(rng.random(n_slots))),
+                                  self.device)
+        self.counters = torch.zeros(n_slots, dtype=torch.int32, device=self.device)
+
+    @property
+    def n_slots(self) -> int:
+        return int(self.offset_u.shape[0])
+
+    def draw(self, slots):
+        """Advance every requested slot occurrence; returns the ``(u, v)``
+        points, each (Q,) float32 on the device."""
+        s = to_device(np.asarray(slots, np.int64), self.device)
+        u, v, self.counters = _stream_prepass2(self.counters, self.offset_u,
+                                               self.offset_v, s)
+        return u, v
+
+    def next(self, slots: np.ndarray | None = None):
+        """Host-API-compatible drain: ``(u, v)`` as numpy."""
+        if slots is None:
+            slots = np.arange(self.n_slots)
+        u, v = self.draw(slots)
+        return u.cpu().numpy(), v.cpu().numpy()
+
+    def snapshot(self) -> dict:
+        def u32(t):
+            return t.cpu().numpy().view(np.uint32).copy()
+
+        return dict(kind="device_qmc2_streams", offset_u=u32(self.offset_u),
+                    offset_v=u32(self.offset_v), counters=u32(self.counters))
+
+    @classmethod
+    def restore(cls, state: dict, device="cuda") -> "DeviceQmc2Streams":
+        """From a 2-D stream snapshot of either package (host or device)."""
+        s = cls.__new__(cls)
+        s.device = resolve(device)
+        s.offset_u = to_device(_i32_bits(state["offset_u"]), s.device)
+        s.offset_v = to_device(_i32_bits(state["offset_v"]), s.device)
+        s.counters = to_device(_i32_bits(state["counters"]), s.device)
+        return s
+
+
+def restore_streams(state: dict | None, device="cuda"):
+    """A stream snapshot of either package back to its class by ``kind``;
+    the device kinds restore onto ``device``."""
     if state is None:
         return None
-    if state["kind"] == "qmc_streams":
+    kind = state["kind"]
+    if kind == "qmc_streams":
         return QmcStreams.restore(state)
-    if state["kind"] == "device_qmc_streams":
+    if kind == "qmc2_streams":
+        return Qmc2Streams.restore(state)
+    if kind == "device_qmc_streams":
         return DeviceQmcStreams.restore(state, device=device)
-    raise NotImplementedError(
-        f"stream kind {state['kind']!r} is not ported yet (ROADMAP A5)")
+    if kind == "device_qmc2_streams":
+        return DeviceQmc2Streams.restore(state, device=device)
+    raise ValueError(f"unknown stream kind {kind!r}")
 
 
 def _rng_state(rng):
@@ -339,7 +460,99 @@ class PooledForestSampler:
         s = cls(n_slots=1, streams=state["stream_kind"],
                 device_streams=state["device_streams"], device=device)
         s.pool = ForestPool.restore(state["pool"], device=device)
-        s.streams = _restore_streams(state["streams"], s.device)
+        s.streams = restore_streams(state["streams"], s.device)
+        s.rng = _rng_restore(state["rng"])
+        return s
+
+
+class SpatialSampler:
+    """2-D serving sampler: one shared environment or density map
+    (:class:`~repro_torch.spatial.Map2DSampler`) drained at per-slot 2-D
+    QMC stream points, on ``device``.
+
+    Each ``sample`` call draws one 2-D point per slot occurrence
+    (``streams="qmc"``: the 24-bit Sobol' pair, counters on the device
+    unless ``device_streams=False``; ``streams="prng"``: a seeded numpy
+    generator) and resolves the batch through
+    :meth:`~repro_torch.spatial.Map2DSampler.sample_map`. Both warps are
+    monotone, so the streams' 2-D stratification survives into texel space.
+    :meth:`update` re-targets dirty rows in place; slot streams keep their
+    counters."""
+
+    def __init__(self, img, n_slots: int = 64, seed: int = 0, streams: str = "qmc",
+                 device_streams: bool = True, device="cuda", **map_kwargs):
+        from repro_torch.spatial import Map2DSampler
+
+        if streams not in ("qmc", "prng"):
+            raise ValueError(f"streams must be 'qmc' or 'prng', got {streams!r}")
+        self.device = resolve(device)
+        self.map = Map2DSampler(img, device=self.device, **map_kwargs)
+        self.stream_kind = streams
+        self.device_streams = device_streams and streams == "qmc"
+        if streams == "qmc":
+            self.streams = (
+                DeviceQmc2Streams(n_slots, seed, device=self.device)
+                if device_streams else Qmc2Streams(n_slots, seed))
+            self.rng = None
+        else:
+            self.streams = None
+            self.rng = np.random.default_rng(seed)
+
+    def _points(self, slots: np.ndarray):
+        if self.stream_kind == "prng":
+            pts = self.rng.random((len(slots), 2)).astype(np.float32)
+            return pts[:, 0], pts[:, 1]
+        if self.device_streams:
+            return self.streams.draw(slots)
+        return self.streams.next(slots)
+
+    def _drain(self, slots):
+        r, c, _, _ = self.map.sample_map(self._points(np.asarray(slots)))
+        return r, c
+
+    def sample(self, slots: np.ndarray):
+        """One (row, col) texel per slot occurrence, as numpy int32."""
+        rc = torch.stack(self._drain(slots)).cpu().numpy()
+        return rc[0], rc[1]
+
+    def sample_flat(self, slots: np.ndarray) -> np.ndarray:
+        """One flat texel id per slot occurrence (the engine's token form)."""
+        return self.map.flat_index(*self._drain(slots)).cpu().numpy()
+
+    def update(self, delta_rows: dict, *, delta: bool = False) -> dict:
+        """Patch dirty map rows in place (O(dirty rows); see
+        :meth:`~repro_torch.spatial.Map2DSampler.update_map`)."""
+        return self.map.update_map(delta_rows, delta=delta)
+
+    def snapshot(self) -> dict:
+        """Map rows, build settings and exact stream state, in the JAX
+        package's format. Restore rebuilds the map (bit-identical arrays)
+        and resumes the streams where they stopped."""
+        m = self.map
+        return dict(
+            kind="spatial_sampler",
+            rows=[np.asarray(r, np.float64) for r in m.rows_raw],
+            map_kwargs=dict(m_marginal=m.m_marginal, min_class=m.min_class,
+                            fallback_slack=m.fallback_slack, coalesce=m.coalesce,
+                            policy=m.policy),
+            stream_kind=self.stream_kind,
+            device_streams=self.device_streams,
+            streams=None if self.streams is None else self.streams.snapshot(),
+            rng=_rng_state(self.rng),
+        )
+
+    @classmethod
+    def restore(cls, state: dict, device="cuda") -> "SpatialSampler":
+        """From a snapshot of either package; a JAX snapshot's
+        ``map_kwargs["use_pallas"]`` is ignored (the kernels follow the
+        device)."""
+        if state.get("kind") != "spatial_sampler":
+            raise ValueError(f"not a SpatialSampler snapshot: {state.get('kind')!r}")
+        kwargs = {k: v for k, v in state["map_kwargs"].items() if k != "use_pallas"}
+        s = cls([np.asarray(r, np.float64) for r in state["rows"]], n_slots=1,
+                streams=state["stream_kind"], device_streams=state["device_streams"],
+                device=device, **kwargs)
+        s.streams = restore_streams(state["streams"], s.device)
         s.rng = _rng_restore(state["rng"])
         return s
 
@@ -406,6 +619,6 @@ class TokenSampler:
             raise ValueError(f"not a TokenSampler snapshot: {state.get('kind')!r}")
         s = cls(mode=state["mode"], n_slots=1, temperature=state["temperature"],
                 use_pallas=state["use_pallas"], device=device)
-        s.streams = _restore_streams(state["streams"], s.device)
+        s.streams = restore_streams(state["streams"], s.device)
         s.rng = _rng_restore(state["rng"])
         return s

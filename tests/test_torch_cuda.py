@@ -16,7 +16,10 @@ inverse-CDF search elementwise on monotone and dipped rows; flash attention
 to the JAX suite's tolerances (2e-5 in float32, 2e-2 in bfloat16) against
 its plain version on the same card tensors (the two sum in other orders),
 bitwise repeatable, with every instance on the tensor cores (HGMMA in the
-library's SASS, bf16 and float32 alike).
+library's SASS, bf16 and float32 alike); the descent of a forest of
+2^30 + 1 intervals (the six-array body) against its plain version; the
+multi-row forest and the 2-D map's drains (the one-class drain under
+``set_sync_debug_mode("error")``) against their plain versions.
 """
 from pathlib import Path
 
@@ -923,3 +926,183 @@ def test_trainer_steps_on_card(cuda, tmp_path):
     assert all(np.isfinite(m["loss"]) for m in out["metrics"])
     assert int(out["opt"].step) == 2 and latest_step(tmp_path) == 2
     assert all(p.dtype == torch.float32 and p.is_cuda for p in out["params"].parameters())
+
+
+# ------------------------------------------- wide forests and the 2-D map
+
+
+def _wide_forest(n: int, m: int):
+    """A forest of ``n`` >= 2^30 intervals made cheaply (not by
+    ``build_forest``, whose flat level tables would need ~180 GB here):
+    every guide cell tags one interval, spread up to ``n - 1``, except cell
+    ``m - 3``, a two-node tree whose second node id is 2^30 (the pack's flag
+    bit), and cell ``m - 2``, flagged, whose bisection runs over
+    [2^30 - 1, 2^30] (``lo + hi + 1`` reaches 2^31 there)."""
+    from repro_torch.core import RadixForest
+
+    g = torch.arange(m, dtype=torch.int64)
+    table = (~((g * (n - 1)) // (m - 1))).to(torch.int32)
+    cdf = torch.zeros(n + 1)
+    left = torch.full((n,), -1, dtype=torch.int32)
+    right = torch.full((n,), -1, dtype=torch.int32)
+    cell_first = torch.zeros(m + 1, dtype=torch.int32)
+    fallback = torch.zeros(m, dtype=torch.bool)
+    a, b = (1 << 30) - 2, 1 << 30
+    table[m - 3] = a
+    cdf[a], left[a], right[a] = (m - 2.5) / m, ~((1 << 30) - 3), b
+    cdf[b], left[b], right[b] = (m - 2.25) / m, ~((1 << 30) - 1), ~(1 << 30)
+    table[m - 2], fallback[m - 2] = a, True
+    cell_first[m - 2], cell_first[m - 1] = (1 << 30) - 1, 1 << 30
+    return RadixForest(cdf, table, left, right, cell_first, fallback)
+
+
+def test_forest_sample_of_2_30_plus_1_intervals_takes_the_six_array_body(cuda):
+    """C9: a forest of 2^30 + 1 intervals, whose node ids the pack's flag bit
+    cannot hold beside them, descends through the six-array body (chosen
+    from n; no pack made) and equals the plain version, node id 2^30 and a
+    bisection at 2^30 included."""
+    from repro_torch.core.sample import PackedForestHolder
+
+    n, m = (1 << 30) + 1, 1 << 16
+    f = _wide_forest(n, m)
+    xi = torch.rand(1 << 16, generator=torch.Generator().manual_seed(3))
+    xi[:6] = torch.tensor([(m - 2.9) / m, (m - 2.4) / m, (m - 2.1) / m, (m - 1.5) / m,
+                           (m - 0.5) / m, 1 - 2**-24])
+    want = forest_sample(*f[:4], f.cell_first, f.fallback, xi)
+    assert want[:6].tolist() == [(1 << 30) - 3, (1 << 30) - 1, 1 << 30, 1 << 30, 1 << 30,
+                                 1 << 30]
+    fd = type(f)(*(t.to(cuda) for t in f))
+    del f
+    packs, launches = forest_pack.launches, forest_sample.launches
+    got = forest_sample(*fd[:4], fd.cell_first, fd.fallback, xi.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert forest_pack.launches == packs and forest_sample.launches == launches + 1
+    holder = PackedForestHolder()
+    holder.forest = fd
+    assert holder._packed is None
+    with pytest.raises(ValueError, match="2\\^30"):
+        forest_pack(fd.cdf, fd.table, fd.left, fd.right, fd.fallback)
+
+
+def test_forest_sample_below_2_30_keeps_the_packed_body(cuda):
+    """Below 2^30 intervals the wrapper packs on the way (one counted
+    ``forest_pack`` launch) and the packed body's draws are unchanged."""
+    w, m = _FORESTS["power8"]
+    f = build_forest(w, m, device="cpu")
+    fd = type(f)(*(t.to(cuda) for t in f))
+    xi = torch.rand(50_000, generator=torch.Generator().manual_seed(4))
+    packs = forest_pack.launches
+    got = forest_sample(*fd[:4], fd.cell_first, fd.fallback, xi.to(cuda))
+    assert forest_pack.launches == packs + 1
+    assert torch.equal(got.cpu(), forest_sample(*f[:4], f.cell_first, f.fallback, xi))
+
+
+@pytest.mark.parametrize("R,W,m,Q", [(1, 1, 1, 1), (3, 8, 8, 511), (17, 9, 16, 512),
+                                     (5, 512, 512, 513), (64, 4096, 4096, 100_000)])
+def test_sample_forest_rows_matches_plain(cuda, R, W, m, Q):
+    """``build_forest_rows`` on the card equals the plain build from the same
+    CDF bits, and ``sample_forest_rows`` (B5 over the row-local view) equals
+    its plain version at lane counts around a tile, class widths at their
+    edges, and uniforms at 0, 1 - 2^-24 and the rows' CDF values."""
+    from repro_torch.core import build_forest_rows, np_build_cdf, sample_forest_rows
+
+    rng = np.random.default_rng(R * W)
+    img = rng.random((R, W)) ** 8 + 1e-9
+    img[0, W // 2:] = 0.0                       # trailing zeros: lower bounds of 1.0
+    img[0, 0] += 1.0
+    cdfs = np.stack([np_build_cdf(r / r.sum()) for r in img])
+    fc = build_forest_rows(cdfs, m, device="cpu")
+    fd = build_forest_rows(cdfs, m, device=cuda)
+    for k in ("data", "table", "left", "right", "cell_first", "fallback"):
+        assert torch.equal(getattr(fd, k).cpu(), getattr(fc, k)), k
+    rows = rng.integers(0, R, Q).astype(np.int32)
+    xi = rng.random(Q).astype(np.float32)
+    k = min(Q, R * W)
+    xi[:k] = cdfs[:, :-1].reshape(-1)[:k]
+    rows[:k] = np.repeat(np.arange(R), W)[:k]
+    xi[-1], rows[-1] = 1 - 2**-24, 0
+    before = forest_sample_batched.launches
+    got = sample_forest_rows(fd, torch.as_tensor(rows).to(cuda), torch.as_tensor(xi).to(cuda))
+    assert forest_sample_batched.launches == before + 1
+    assert torch.equal(got.cpu(), sample_forest_rows(fc, rows, xi))
+
+
+def _plain_map_drain(m, u, v):
+    """A ``Map2DSampler``'s drain by the plain versions, on CPU copies of the
+    card's forests and lane tables."""
+    from repro_torch.core import RadixForest, sample_forest
+    from repro_torch.kernels import ops as K
+
+    marg = RadixForest(*(t.cpu() for t in m.forest))
+    row = sample_forest(marg, u.cpu(), device="cpu")
+    r = row.long()
+    fused = len(m.classes) == 1
+    lanes = (None if fused else m._group_t.cpu()[r], m._slot_t.cpu()[r], m._hi_t.cpu()[r])
+    col = torch.empty_like(row)
+    forests = [BatchedForest(*(t.cpu() for t in c.forest)) for c in m.classes.values()]
+    K.forest_sample_grouped(forests, lanes, col, xi=v.cpu())
+    return row, col
+
+
+def test_map2d_fused_drain_makes_no_host_sync(cuda):
+    """The single-class drain (B1 on the marginal, the slot gather, B5, the
+    width clip) runs under ``set_sync_debug_mode("error")`` and equals the
+    plain versions; the 2-D device streams equal their host twin."""
+    from repro_torch.configs.paper_workloads import env_map_2d
+    from repro_torch.serve.sampler import DeviceQmc2Streams, Qmc2Streams
+    from repro_torch.spatial import Map2DSampler
+
+    m = Map2DSampler(env_map_2d(64, 128), device=cuda)
+    assert len(m.classes) == 1
+    streams, host = DeviceQmc2Streams(1024, seed=1, device=cuda), Qmc2Streams(1024, seed=1)
+    slots = np.random.default_rng(0).integers(0, 1024, 20_000)
+    slots[:64] = slots[64:128]
+    u, v = streams.draw(slots)
+    hu, hv = host.next(slots)
+    assert np.array_equal(u.cpu().numpy(), hu) and np.array_equal(v.cpu().numpy(), hv)
+    assert np.array_equal(streams.counters.cpu().numpy().view(np.uint32), host.counters)
+    m.sample_map((u, v))
+    torch.cuda.synchronize()
+    b1, b5 = forest_sample.launches, forest_sample_batched.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        row, col, _, _ = m.sample_map((u, v))
+        with pytest.raises(RuntimeError):  # the mode does refuse a host read
+            row[0].item()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (forest_sample.launches - b1, forest_sample_batched.launches - b5) == (1, 1)
+    want_row, want_col = _plain_map_drain(m, u, v)
+    assert torch.equal(row.cpu(), want_row) and torch.equal(col.cpu(), want_col)
+
+
+def test_map2d_multi_class_drain_and_update_on_card(cuda):
+    """A ragged map over several classes drains in one grouped B5 launch
+    equal to the plain versions; an update is bit-equal to a fresh build
+    on the card."""
+    from repro_torch.spatial import Map2DSampler
+
+    rng = np.random.default_rng(2)
+    rows = [rng.random(w) ** 3 + 1e-6 for w in rng.integers(1, 300, 200)]
+    rows[7] = np.zeros(len(rows[7]))
+    m = Map2DSampler(rows, device=cuda)
+    assert len(m.classes) >= 5
+    pts = torch.rand((30_000, 2), generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = forest_sample_batched.launches
+    row, col, u, v = m.sample_map(pts)
+    assert forest_sample_batched.launches == before + 1
+    want_row, want_col = _plain_map_drain(m, u, v)
+    assert torch.equal(row.cpu(), want_row) and torch.equal(col.cpu(), want_col)
+    assert not bool((row == 7).any())
+    new = {r: rng.random(len(rows[r])) + 0.1 for r in (3, 7, 150)}
+    m.update_map(new)
+    fresh_rows = list(rows)
+    for r, w in new.items():
+        fresh_rows[r] = w
+    fresh = Map2DSampler(fresh_rows, device=cuda)
+    for wc in m.classes:
+        for a, b in zip(m.classes[wc].forest, fresh.classes[wc].forest):
+            assert torch.equal(a, b), wc
+    for a, b in zip(m.forest, fresh.forest):
+        assert torch.equal(a, b)

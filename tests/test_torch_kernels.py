@@ -232,17 +232,46 @@ def test_forest_pack_flags_only_tree_cells():
 
 @pytest.mark.parametrize("which", ["forest_pack", "forest_sample"])
 def test_forest_pack_raises_where_the_flag_bit_cannot_hold_n(which):
-    """Node ids of 2^30 or more would collide with the flag bit: both
-    wrappers refuse such a forest (stride-0 views, so nothing is allocated)."""
+    """Node ids of 2^30 or more would collide with the pack's flag bit:
+    ``forest_pack`` refuses such a forest, and so does ``forest_sample``
+    when handed a pack for it. Without a pack, the plain path reads the six
+    arrays and accepts the same forest: a lane in a tagged cell returns its
+    interval, and one in a tree cell descends to its leaf (stride-0 views,
+    so nothing is allocated)."""
     n, m = 1 << 30, 16
     i32 = torch.zeros(1, dtype=torch.int32)
     cdf, left = torch.zeros(1).expand(n + 1), i32.expand(n)
     table, fallback = i32.expand(m), torch.zeros(1, dtype=torch.bool).expand(m)
-    with pytest.raises(ValueError, match="2\\^30"):
-        if which == "forest_pack":
+    if which == "forest_pack":
+        with pytest.raises(ValueError, match="2\\^30"):
             forest_pack(cdf, table, left, left, fallback)
-        else:
-            forest_sample(cdf, table, left, left, i32.expand(m + 1), fallback, torch.zeros(4))
+        return
+    packed = (i32.expand(m), i32.expand(n, 4))
+    with pytest.raises(ValueError, match="2\\^30"):
+        forest_sample(cdf, table, left, left, i32.expand(m + 1), fallback,
+                      torch.zeros(4), packed=packed)
+    tagged = torch.full((1,), ~(n - 1), dtype=torch.int32).expand(m)
+    leaf = torch.full((1,), ~(n - 1), dtype=torch.int32).expand(n)
+    for tab, want in ((tagged, n - 1), (table, n - 1)):
+        got = forest_sample(cdf, tab, leaf, leaf, i32.expand(m + 1), fallback,
+                            torch.tensor([0.0, 0.5, 0.999]))
+        assert got.tolist() == [want] * 3
+
+
+def test_holder_makes_no_pack_for_a_forest_of_2_30_intervals():
+    """A sampler's forest of 2^30 or more intervals gets no pack: its draws
+    take the six-array body (stride-0 views, so nothing is allocated)."""
+    from repro_torch.core import RadixForest
+    from repro_torch.core.sample import PackedForestHolder
+
+    n, m = 1 << 30, 16
+    i32 = torch.zeros(1, dtype=torch.int32)
+    f = RadixForest(torch.zeros(1).expand(n + 1), i32.expand(m), i32.expand(n),
+                    i32.expand(n), i32.expand(m + 1),
+                    torch.zeros(1, dtype=torch.bool).expand(m))
+    holder = PackedForestHolder()
+    holder.forest = f
+    assert holder._packed is None and holder.forest is f
 
 
 @pytest.mark.parametrize("how", ["update_weights", "from_state"])

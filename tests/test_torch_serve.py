@@ -403,9 +403,13 @@ def test_engine_submit_validation(tiny_lm):
         eng.submit(Request(rid=2, prompt=z, prior=np.asarray(["x", "y"])))
     with pytest.raises(RequestError, match="non_finite"):
         eng.submit(Request(rid=3, prompt=z, prior=np.asarray([1.0, np.nan])))
-    with pytest.raises(NotImplementedError, match="A5"):
-        eng.submit(Request(rid=4, prompt=z, prior2d=np.ones((2, 3))))
+    with pytest.raises(RequestError, match="prior2d bad_shape"):
+        eng.submit(Request(rid=4, prompt=z, prior2d=[np.ones((2, 3))]))
+    with pytest.raises(RequestError, match="prior2d negative"):
+        eng.submit(Request(rid=5, prompt=z, prior2d=np.asarray([[1.0, -1.0]])))
     assert len(eng.queue) == 0
+    eng.submit(Request(rid=4, prompt=z, prior2d=np.ones((2, 3))))  # a 2-D map request
+    assert len(eng.queue) == 1
     lenient = ServeEngine(None, None, n_slots=2, device="cpu",
                           prior_sampler=PooledForestSampler(n_slots=2, policy="clamp",
                                                             device="cpu"))
