@@ -95,10 +95,27 @@ the ignored ``build/`` directory), then:
    step 2 and resumed, bitwise equal under deterministic algorithms; the
    mixture's forest kernels counted; step time, the profile of one step,
    and the training launcher once in a subprocess;
-10. prints the kernels line (launch counts from the runs of steps 3, 4, 5,
-   6, 8 and 9's eval and train paths, each with every count set to 0 just
-   before it; each kernel's launches and summed device time on each of the
-   seven paths, main, paper, map2d, pool, serve, eval and train: the time
+   3b. the dist phase (``dist_path``) on a single-rank nccl group: the
+   same weights through ``build_cdf_sharded`` and ``build_forest_sharded``,
+   the 2^24 uniforms through ``sample_sharded`` routed and with the
+   all-reduce oracle, the drain plan, a 64-leaf ``update_forest_sharded``;
+   ``dist_checks``: ``gather_forest`` against ``build_forest`` bit for bit,
+   both drains against ``sample_forest``, the update against a
+   from-scratch sharded build; B2, B3 and B4 must launch there;
+   7b. the robust phase (``robust_path``) on the pool phase's own pool:
+   ``save_serving`` of the ``PooledForestSampler`` under ``build/``, load and
+   restore (bytes on disk, save/load/restore seconds), 2 drains of 2^20 and
+   the counters equal to the original's, ``verify_pool(deep=True)`` clean
+   and timed, then a NaN written into one arena row named by it;
+   ``run_chaos(FaultPlan.default(24, seed=0))`` under quarantine, clamp and
+   reject; a 4K ``SpatialSampler`` and a model-backed ``ServeEngine``
+   (Qwen1.5-0.5B, 16 slots, KV cache) saved mid-flight through disk, their
+   next drains and tokens equal to the originals';
+10. prints the kernels line (launch counts from the runs of steps 3, 3b, 4,
+   5, 6, 7b, 8 and 9's eval and train paths, each with every count set to 0
+   just before it; each kernel's launches and summed device time on each of
+   the nine paths, main, dist, paper, map2d, pool, robust, serve, eval and
+   train: the time
    from torch.profiler, CUDA activity only, by the kernels' symbols, around
    a second counted run of each path
    at the end, so the first runs' times carry no tracing cost; ``cdf_scan``
@@ -436,7 +453,7 @@ KERNEL_SYMBOLS = {
     "sample_rows": ("sample_rows_kernel",),
     "flash_attention": ("flash_attention_f32_tf32x3", "flash_attention_bf16_wgmma"),
 }
-PATHS = ("main", "paper", "map2d", "pool", "serve", "eval", "train")
+PATHS = ("main", "dist", "paper", "map2d", "pool", "robust", "serve", "eval", "train")
 
 
 def kernel_of(key: str):
@@ -1637,6 +1654,235 @@ def pool_profile(rec: dict, device, n_draws: int) -> dict:
 # The serve phase: ServeEngine over the dense LM at Qwen1.5-0.5B's widths.
 # ---------------------------------------------------------------------------
 
+ROBUST_DRAINS = 2            # stream drains of POOL_DRAWS after the restore
+ROBUST_CHAOS_STEPS = 24      # FaultPlan.default(24, seed=0) under each policy
+ROBUST_REQUESTS = 24         # model requests of the engine saved mid-flight
+ROBUST_STEPS = 6             # engine steps before the save
+
+
+def disk_bytes(d: Path) -> int:
+    return sum(f.stat().st_size for f in d.rglob("*") if f.is_file())
+
+
+def through_disk(d: Path, **components):
+    """save_serving the components, load the bundle back: ``(states, bytes
+    on disk, save s, load s)`` on the host clock."""
+    from repro_torch.robust import load_serving, save_serving
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    path = save_serving(d, 1, **components)
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    states, step = load_serving(d)
+    load_s = time.perf_counter() - t
+    check(step == 1, "load_serving finds the committed step")
+    return states, disk_bytes(path), save_s, load_s
+
+
+def robust_path(rec: dict, device, root: Path, cfg=None, map_hw=(MAP_H, MAP_W),
+                n_draws=POOL_DRAWS, map_draws=MAP_DRAWS, n_requests=ROBUST_REQUESTS,
+                max_seq=None) -> None:
+    """The serving state and robustness layer on the card, on the pool
+    phase's own pool: ``save_serving`` of the ``PooledForestSampler`` (pool
+    and device QMC streams) under ``build/``, load, restore, the next
+    drains and the counters of both equal; ``verify_pool(deep=True)`` of
+    the restored pool clean, then a NaN written into one arena row behind
+    its back and named; ``run_chaos`` under each policy; a 4K
+    ``SpatialSampler`` and a model-backed ``ServeEngine`` saved mid-flight
+    through disk, their next drain and tokens equal."""
+    import shutil
+
+    import repro_torch.configs as C
+    from repro_torch.configs.paper_workloads import env_map_2d
+    from repro_torch.models import init_params
+    from repro_torch.robust import verify_pool
+    from repro_torch.robust.faults import FaultPlan, run_chaos
+    from repro_torch.serve import PooledForestSampler, ServeEngine, SpatialSampler, TokenSampler
+
+    d = root / "build" / "chip_smoke_serving"
+    shutil.rmtree(d, ignore_errors=True)
+    sampler, handles = rec["sampler"], rec["handles"]
+    states, nbytes_, save_s, load_s = through_disk(d / "pool", sampler=sampler)
+    t = time.perf_counter()
+    twin = PooledForestSampler.restore(states["sampler"], device=device)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    del states
+    cells = sum(sc.rows * s for s, sc in twin.pool.classes.items()) + sum(
+        ar.rows * s for s, ar in twin.pool.alias_classes.items())
+    print(f"robust: save_serving of the pool sampler ({len(handles)} tenants, {cells} padded "
+          f"arena cells, device QMC streams): {nbytes_} bytes on disk, save {save_s:.3f} s, "
+          f"load {load_s:.3f} s, restore onto the card {restore_s:.3f} s (host clock)",
+          flush=True)
+    rng = np.random.default_rng(5)
+    n_slots = int(sampler.streams.counters.shape[0])
+    for i in range(ROBUST_DRAINS):
+        hs = [handles[j] for j in rng.integers(0, len(handles), n_draws)]
+        slots = rng.integers(0, n_slots, n_draws)
+        check(np.array_equal(sampler.sample(hs, slots), twin.sample(hs, slots)),
+              f"restored sampler's stream drain {i} == the original's")
+    check(torch.equal(sampler.streams.counters, twin.streams.counters),
+          "restored stream counters == the original's")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    errs = verify_pool(twin.pool, deep=True)
+    torch.cuda.synchronize()
+    verify_s = time.perf_counter() - t
+    check(errs == [], f"verify_pool of the restored pool: {errs[:3]}")
+    size = max(twin.pool.classes)
+    row = min(twin.pool.classes[size].raw)
+    twin.pool.classes[size].forest.cdf[row, 1] = float("nan")
+    errs = verify_pool(twin.pool, deep=True)
+    check(errs == [f"forest[{size}] row {row}: cdf has non-finite entries"],
+          f"verify_pool names the corrupted row: {errs[:3]}")
+    del twin
+    print(f"robust: {ROBUST_DRAINS} stream drains of {n_draws} after the restore == the "
+          f"original's, counters equal; verify_pool(deep=True) of the restored pool clean in "
+          f"{verify_s:.3f} s (host clock, one batched build_cdf a size class); a NaN written "
+          f"into forest[{size}] row {row} on the card is named", flush=True)
+
+    plan = FaultPlan.default(ROBUST_CHAOS_STEPS, seed=0)
+    for policy in ("quarantine", "clamp", "reject"):
+        t = time.perf_counter()
+        rep = run_chaos(plan, steps=ROBUST_CHAOS_STEPS, policy=policy, seed=0, device=device)
+        check(rep["drains_equal"] and rep["verify_errors"] == []
+              and rep["injected"] == len(plan.faults), f"chaos contract under {policy}")
+        print(f"robust: run_chaos {policy}: {rep['injected']} faults, caught "
+              f"{[(s, k, c) for s, k, c in rep['caught']]}, quarantined {rep['quarantined']}, "
+              f"co-tenant drains equal, verify clean, {time.perf_counter() - t:.3f} s",
+              flush=True)
+
+    img = env_map_2d(*map_hw, seed=0)
+    sp = SpatialSampler(img, n_slots=MAP_SLOTS, seed=0, device=device)
+    slots = rng.integers(0, MAP_SLOTS, map_draws)
+    sp.sample_flat(slots)
+    states, nbytes_, save_s, load_s = through_disk(d / "spatial", spatial=sp)
+    sp2 = SpatialSampler.restore(states["spatial"], device=device)
+    for _ in range(2):
+        check(np.array_equal(sp.sample_flat(slots), sp2.sample_flat(slots)),
+              "restored SpatialSampler's drain == the original's")
+    del sp, sp2, states
+    print(f"robust: SpatialSampler over env_map_2d{tuple(map_hw)} through disk: "
+          f"{nbytes_} bytes, save {save_s:.3f} s, load {load_s:.3f} s; the next 2 drains of "
+          f"{map_draws} == the original's", flush=True)
+
+    cfg = cfg or C.get(SERVE_ARCH)
+    max_seq = max_seq or SERVE_MAX_SEQ
+    model = init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    eng = ServeEngine(model, cfg, n_slots=SERVE_SLOTS, max_seq=max_seq,
+                      sampler=TokenSampler(mode="inverse_qmc", n_slots=SERVE_SLOTS,
+                                           device=device), device=device)
+    for r in serve_requests(cfg, n_requests, 2, 16, 8, min(64, max_seq // 2), seed=3):
+        eng.submit(r)
+    for _ in range(ROBUST_STEPS):
+        eng.step()
+    states, nbytes_, save_s, load_s = through_disk(d / "engine", engine=eng)
+    twin = ServeEngine.restore(states["engine"], params=model, cfg=cfg, device=device)
+    del states
+    live = {r.rid: r for r in [s for s in eng.slots if s is not None] + list(eng.queue)}
+    copy = {r.rid: r for r in [s for s in twin.slots if s is not None] + list(twin.queue)}
+    check(set(live) == set(copy) and len(live) > SERVE_SLOTS, "restored engine's requests")
+    before = {rid: len(r.out) for rid, r in live.items()}
+    eng.run(max_steps=1000)
+    twin.run(max_steps=1000)
+    check(all(r.done and copy[rid].done and r.out[before[rid]:] == copy[rid].out[before[rid]:]
+              for rid, r in live.items()), "restored engine's tokens == the original's")
+    print(f"robust: ServeEngine ({cfg.name} {cfg.dtype}, {SERVE_SLOTS} slots, KV cache of "
+          f"{max_seq}) saved after {ROBUST_STEPS} steps with {len(live)} live or queued "
+          f"requests: {nbytes_} bytes, save {save_s:.3f} s, load {load_s:.3f} s; the "
+          f"{sum(len(r.out) - before[rid] for rid, r in live.items())} tokens after the "
+          f"restore == the original's", flush=True)
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+DIST_UPDATE_LEAVES = 64
+
+
+def dist_path(device, weights: np.ndarray, m: int, n_draws: int, gen) -> dict:
+    """The sharded forest over a single-rank nccl group at the main path's
+    size: ``build_cdf_sharded``, ``build_forest_sharded`` (n = m = 2^20),
+    ``n_draws`` uniforms through ``sample_sharded`` routed and not, the
+    drain plan, a sparse ``update_forest_sharded`` of 64 leaves; host-clock
+    times around synchronized calls. The comparisons are in
+    ``dist_checks``."""
+    from repro_torch.dist import forest as DF
+
+    w = torch.as_tensor(weights, dtype=torch.float32, device=device)
+
+    def timed_call(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    cdf, cdf_s = timed_call(lambda: DF.build_cdf_sharded(w, device=device))
+    sf, build_s = timed_call(lambda: DF.build_forest_sharded(w, m, device=device))
+    xi = torch.rand(n_draws, generator=gen, device=device)
+    routed, routed_s = timed_call(lambda: DF.sample_sharded(sf, xi, device=device))
+    oracle, oracle_s = timed_call(lambda: DF.sample_sharded(sf, xi, routed=False, device=device))
+    plan = DF.drain_plan(sf, xi, device=device)
+    rng = np.random.default_rng(9)
+    upd_s = []
+    for _ in range(2):  # two updates of the same forest, other leaves
+        w1 = weights.copy()
+        w1[rng.choice(len(w1), DIST_UPDATE_LEAVES, replace=False)] *= np.float32(1.5)
+        (upd, st), dt = timed_call(lambda: DF.update_forest_sharded(sf, w1, with_stats=True,
+                                                                   device=device))
+        upd_s.append(dt)
+    print(f"dist: single-rank nccl group, n = m = {m}: build_cdf_sharded {cdf_s * 1e3:.3f} ms, "
+          f"build_forest_sharded {build_s * 1e3:.3f} ms (capacity {sf.capacity}); "
+          f"sample_sharded of {n_draws}: routed {routed_s * 1e3:.3f} ms "
+          f"({n_draws / routed_s:.6e} draws/s), all-reduce oracle {oracle_s * 1e3:.3f} ms; "
+          f"update_forest_sharded of {DIST_UPDATE_LEAVES} leaves "
+          f"{' / '.join(f'{x * 1e3:.3f}' for x in upd_s)} ms "
+          f"(host clock, synchronized, first calls); drain plan "
+          f"{ {k: v for k, v in plan.items() if k != 'send_counts'} }, "
+          f"send counts {plan['send_counts'].tolist()}; update stats {st}", flush=True)
+    return dict(cdf=cdf, sf=sf, xi=xi, routed=routed, oracle=oracle, w1=w1, upd=upd)
+
+
+def dist_checks(rec: dict, device, weights: np.ndarray, m: int) -> None:
+    """The sharded results against the unsharded ones on the card:
+    ``gather_forest`` against ``build_forest``'s six arrays bit for bit,
+    both drains against ``sample_forest`` elementwise, the update against
+    a from-scratch sharded build over the same partition and capacity and,
+    gathered, against ``build_forest`` of the new weights."""
+    from repro_torch.core.forest import build_forest
+    from repro_torch.core.sample import sample_forest
+    from repro_torch.dist import forest as DF
+
+    f = build_forest(torch.as_tensor(weights, device=device), m, device=device)
+    check(torch.equal(rec["cdf"].view(torch.int32), f.cdf.view(torch.int32)),
+          "build_cdf_sharded == build_cdf, bit for bit")
+    for k, a, b in zip(f._fields, DF.gather_forest(rec["sf"]), f):
+        check(torch.equal(a, b), f"gather_forest {k} == build_forest's, bit for bit")
+    want = sample_forest(f, rec["xi"], device=device)
+    check(torch.equal(rec["routed"], want), "routed sample_sharded == sample_forest")
+    check(torch.equal(rec["oracle"], want), "all-reduce sample_sharded == sample_forest")
+    ref = DF.build_forest_sharded(rec["w1"], m, partition=rec["sf"].cell_bounds.cpu().numpy(),
+                                  capacity=rec["upd"].capacity, device=device)
+    for k, a, b in zip(ref._fields, rec["upd"], ref):
+        check(torch.equal(a, b), f"update_forest_sharded {k} == a from-scratch sharded build")
+    f1 = build_forest(torch.as_tensor(rec["w1"], device=device), m, device=device)
+    for k, a, b in zip(f1._fields, DF.gather_forest(rec["upd"]), f1):
+        check(torch.equal(a, b), f"gather_forest of the update {k} == build_forest's")
+    print("dist checks: gather_forest == build_forest (six arrays, bit for bit); routed and "
+          "all-reduce drains == sample_forest elementwise; the sparse update == a "
+          "from-scratch sharded build over the same partition and capacity, and its "
+          "gather_forest == build_forest of the new weights (six arrays, bit for bit)",
+          flush=True)
+
+
 SERVE_ARCH = "qwen1_5_0_5b"  # 24 layers, d_model 1024, 16 heads, vocab 151936
 SERVE_SLOTS = 16
 SERVE_MAX_SEQ = 256
@@ -2218,6 +2464,31 @@ def train_timing(rec: dict, cfg, device, B=TRAIN_B, S=TRAIN_S) -> None:
     batch = make_batch(cfg, TRAIN_STEPS + 3, B, S, mixture=tr.mixture)
     profile_calls((("train step (8 x 256, float32 masters)",
                     lambda: tr.step_fn(params, opt, batch)),))
+    ckpt_timing(tr, params, opt)
+
+
+def ckpt_timing(tr, params, opt) -> None:
+    """The trainer's checkpoint save at full width, host clock: the
+    parameters and AdamW state in JAX's layout (per-period leaves stacked
+    and transposed on the host), and that map alone."""
+    import shutil
+
+    from repro_torch.ckpt import save
+
+    d = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt_timing"
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    save(d, tr._tree(params, opt), 1)
+    save_s = time.perf_counter() - t
+    nbytes_ = disk_bytes(d)
+    shutil.rmtree(d, ignore_errors=True)
+    t = time.perf_counter()
+    tr._tree(params, opt)
+    map_s = time.perf_counter() - t
+    print(f"checkpoint save ({sum(p.numel() for p in params.parameters())} parameters and "
+          f"AdamW moments, {nbytes_} bytes, JAX layout; host clock): {save_s:.3f} s (the "
+          f"host copy and map alone {map_s:.3f} s)", flush=True)
 
 
 def train_launcher(ckpt_root: Path) -> None:
@@ -2287,9 +2558,14 @@ def run(build_s: float) -> dict:
         and return the path's result."""
         for fn in wrappers.values():
             fn.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
         out = path(*args, **kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
         counts[label] = {k: fn.launches for k, fn in wrappers.items()}
-        print(f"launches on the {label} path: {counts[label]}", flush=True)
+        print(f"launches on the {label} path ({wall:.3f} s, host clock): {counts[label]}",
+              flush=True)
         return out
 
     def profiled(label, path, *args, **kwargs):
@@ -2297,7 +2573,7 @@ def run(build_s: float) -> dict:
         (CUDA activity only) and with its printing muted: each kernel's
         summed device time there. Its counts must equal the first run's.
         The first run stays unprofiled, so the times it prints carry no
-        tracing cost."""
+        tracing cost. Returns the path's result."""
         from torch.profiler import ProfilerActivity, profile
 
         for fn in wrappers.values():
@@ -2305,7 +2581,7 @@ def run(build_s: float) -> dict:
         torch.cuda.synchronize()
         with contextlib.redirect_stdout(io.StringIO()), \
                 profile(activities=[ProfilerActivity.CUDA]) as prof:
-            path(*args, **kwargs)
+            out = path(*args, **kwargs)
             torch.cuda.synchronize()
         check({k: fn.launches for k, fn in wrappers.items()} == counts[label],
               f"the {label} path launches the same kernels when run again")
@@ -2316,8 +2592,23 @@ def run(build_s: float) -> dict:
         print(f"kernel device ms on the {label} path (profiler, a second counted run): "
               + ", ".join(f"{k} {v:.4f}" for k, v in path_ms[label].items() if v > 0),
               flush=True)
+        return out
 
     counted("main", main_path, device, weights, m, n_draws, gen)
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    t = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    dist.barrier(device_ids=[0])  # the communicator is made on the first collective
+    print(f"nccl process group of one rank, first collective included: "
+          f"{time.perf_counter() - t:.3f} s", flush=True)
+    drec = counted("dist", dist_path, device, weights, m, n_draws, gen)
+    for name in ("forest_delta", "cdf_scan", "forest_delta_update"):
+        check(counts["dist"][name] > 0, f"{name} launched on the dist path")
+    dist_checks(drec, device, weights, m)
+    del drec
     counted("paper", paper_path, device)
     paper_checks(device)
     mrec = counted("map2d", map2d_path, device)
@@ -2340,6 +2631,11 @@ def run(build_s: float) -> dict:
     pool_admission_by_class(rec, device)
     raw["forest_sample_batched_streams"]["at_drain"]["stream_drain"] = pool_profile(
         rec, device, POOL_DRAWS)["stream"]
+    root = Path(__file__).resolve().parent
+    counted("robust", robust_path, rec, device, root)
+    for name in ("cdf_scan", "forest_sample_batched", "forest_sample_batched_streams",
+                 "alias_build_batched", "alias_sample_batched", "sample_rows"):
+        check(counts["robust"][name] > 0, f"{name} launched on the robust path")
     del rec
 
     cfg = C.get(SERVE_ARCH)
@@ -2370,9 +2666,13 @@ def run(build_s: float) -> dict:
     train_launcher(ckpt_root)
 
     profiled("main", main_path, device, weights, m, n_draws, gen)
+    profiled("dist", dist_path, device, weights, m, n_draws, gen)
+    dist.destroy_process_group()
     profiled("paper", paper_path, device)
     profiled("map2d", map2d_path, device)
-    profiled("pool", pool_path, device)
+    rec = profiled("pool", pool_path, device)
+    profiled("robust", robust_path, rec, device, root)
+    del rec
     profiled("serve", serve_path, device, cfg)
     profiled("eval", eval_path, device, tcfg)
     profiled("train", train_path, device, tcfg, ckpt_root)

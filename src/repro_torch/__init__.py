@@ -36,7 +36,16 @@ Layers on the card so far:
   ``forest_sample``, and ``make_batch``), ``ckpt`` (atomic ``save``,
   ``restore``, ``latest_step``, ``CheckpointManager``) and
   ``launch.train``; ``interop.params_to_jax`` and ``opt_state_from_jax``
-  carry training state between the packages.
+  carry training state between the packages, and the ``Trainer``'s
+  checkpoints are in JAX's layout (``models.layout``);
+* the 2-D map path (``spatial.Map2DSampler``, ``serve.SpatialSampler``)
+  and the paper's workloads (``core.counting``, ``core.forest2d``);
+* the serving state and robustness layer: ``ckpt.save_state`` /
+  ``load_state`` (the JAX package's format), ``robust.save_serving`` /
+  ``load_serving``, ``robust.verify_pool`` and ``robust.faults.run_chaos``;
+* ``dist.forest``: forests cell-partitioned over a ``torch.distributed``
+  process group (nccl on the card, gloo on the CPU), and the sharded
+  ``ForestSampler``, ``MixtureSampler`` and ``Map2DSampler``.
 
 Device policy (see :mod:`repro_torch.device`):
 

@@ -145,6 +145,10 @@ def _build_cell_trees(
     m: int,
     rows: int = 1,
     fallback_slack: int = 2,
+    cell_lo: int = 0,
+    m_cells: int | None = None,
+    node_offset: int = 0,
+    n_total: int | None = None,
 ):
     """Per-cell radix trees over all guide cells of ``rows`` stacked
     distributions of equal width, in one flat pass.
@@ -161,28 +165,40 @@ def _build_cell_trees(
     end. Real targets are unique by construction; only the drop slot takes
     duplicates, so CUDA's unordered scatter stays deterministic.
 
+    A window of one distribution (the sharded build of
+    :mod:`repro_torch.dist.forest`) passes the leaves of whole cells
+    ``[cell_lo, cell_lo + m_cells)`` only: ``cells`` then holds each leaf's
+    cell minus ``cell_lo``, window index ``w`` is global leaf ``w +
+    node_offset``, every reference written is global, and ``cell_first``
+    is clamped to ``[0, n_total)``. Trees never cross a cell, so such a
+    window's arrays equal the whole build's at the window's slots and
+    cells.
+
     Returns flat ``(left, right, table, cell_first[:m] per row, fallback)``.
     """
     n = data.shape[0]
     W = n // rows
+    mc = m if m_cells is None else m_cells
+    n_total = W if n_total is None else n_total
     dev = data.device
     i64 = torch.int64
     S = DIST_SENTINEL
     i = torch.arange(n, dtype=i64, device=dev)
     row_start = i - i % W
+    ref_base = row_start - node_offset  # reference = index - ref_base
 
-    grid_i = torch.arange(m, dtype=torch.int32, device=dev).to(torch.float32)
+    grid_i = torch.arange(cell_lo, cell_lo + mc, dtype=torch.int32, device=dev).to(torch.float32)
     grid = grid_i / torch.full_like(grid_i, float(m))
     cell_first = torch.searchsorted(
-        data.view(rows, W), grid.expand(rows, m).contiguous(), right=True) - 1
-    cell_first = torch.clamp(cell_first, 0, W - 1).reshape(-1)
+        data.view(rows, W), grid.expand(rows, mc).contiguous(), right=True) - 1
+    cell_first = torch.clamp(cell_first + node_offset, 0, n_total - 1).reshape(-1)
 
-    counts = torch.zeros(rows * m, dtype=i64, device=dev).scatter_add_(
+    counts = torch.zeros(rows * mc, dtype=i64, device=dev).scatter_add_(
         0, cells, torch.ones_like(cells))
-    first_leaf = torch.full((rows * m,), n, dtype=i64, device=dev).scatter_reduce_(
+    first_leaf = torch.full((rows * mc,), n, dtype=i64, device=dev).scatter_reduce_(
         0, cells, i, "amin", include_self=True)
     f_safe = torch.clamp(first_leaf, 0, n - 1)
-    f_local = f_safe - row_start[f_safe]
+    f_local = f_safe - ref_base[f_safe]
     left_overlap = data[f_safe] > grid.repeat(rows)
     overlap = torch.where(counts > 0, counts + left_overlap.to(i64), 1)
 
@@ -200,7 +216,7 @@ def _build_cell_trees(
         is_root = in_cell & (dL == S) & (dR == S)
         par_is_L = dL <= dR
         parent_node = torch.where(par_is_L, L, R) + 1
-        node_local = (k + 1) - row_start[1:]
+        node_local = (k + 1) - ref_base[1:]
 
         # Internal non-root separators -> child of parent separator's node.
         inner = in_cell & ~is_root
@@ -223,7 +239,7 @@ def _build_cell_trees(
     lone = (dl == S) & (dr == S)
     lpar_is_left = dl <= dr
     lparent = torch.where(lpar_is_left, i, i + 1)  # sep i-1 -> node i
-    leaf_ref = ~(i - row_start)
+    leaf_ref = ~(i - ref_base)
     right[drop(~lone & lpar_is_left, lparent)] = leaf_ref
     left[drop(~lone & ~lpar_is_left, lparent)] = leaf_ref
     # A lone leaf is its cell's entire tree: right child of its own slot.
@@ -250,7 +266,7 @@ def _build_cell_trees(
         anc = torch.where(live, node_parent[torch.clamp(anc, min=0)], anc)
     depth += 1  # the leaf resolution step itself
 
-    cell_depth = torch.zeros(rows * m, dtype=i64, device=dev).scatter_reduce_(
+    cell_depth = torch.zeros(rows * mc, dtype=i64, device=dev).scatter_reduce_(
         0, cells, depth, "amax", include_self=True)
     fallback = (overlap > 1) & (
         cell_depth > _allowed_depth(overlap) + fallback_slack)

@@ -89,16 +89,18 @@ class PackedForestHolder:
     it (``_packed``, for :func:`sample_forest`), so no draw reads the pack
     of a forest that was replaced. A forest of ``PACK_MAX_N`` or more
     intervals has no pack (``_packed`` None): the descent reads its six
-    arrays."""
+    arrays. Nor has a sharded forest (``repro_torch.dist.forest``), which
+    ``sample_sharded`` drains."""
 
     @property
-    def forest(self) -> RadixForest:
+    def forest(self):
         return self._forest
 
     @forest.setter
-    def forest(self, forest: RadixForest) -> None:
+    def forest(self, forest) -> None:
         self._forest = forest
-        self._packed = pack_forest(forest) if forest.n < PACK_MAX_N else None
+        self._packed = (pack_forest(forest)
+                        if isinstance(forest, RadixForest) and forest.n < PACK_MAX_N else None)
 
 
 def sample_forest(

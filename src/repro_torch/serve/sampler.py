@@ -34,6 +34,7 @@ from repro_torch.core.lds import (
 )
 from repro_torch.core.sample import PackedForestHolder, sample_forest
 from repro_torch.device import resolve, to_device
+from repro_torch.dist import forest as DF
 from repro_torch.kernels import ops
 
 
@@ -95,19 +96,34 @@ class ForestSampler(PackedForestHolder):
     Builds the radix forest once on ``device``; every :meth:`sample` call
     inverts the CDF at the slots' QMC stream points through the
     ``forest_sample`` kernel. :meth:`update_weights` swaps the distribution
-    in place and the slot streams continue uninterrupted."""
+    in place and the slot streams continue uninterrupted.
+
+    ``sharded=True`` builds the forest cell-partitioned over a
+    ``torch.distributed`` group (:mod:`repro_torch.dist.forest`;
+    ``rebalance=True`` balances the cells by leaf occupancy) and resolves
+    each draw on the rank owning its cell: the same draws as the
+    single-device path. Updates then rebuild only the shards whose leaves
+    moved."""
 
     def __init__(self, weights, m: int | None = None, sharded: bool = False,
-                 n_slots: int = 64, seed: int = 0, device="cuda"):
-        if sharded:
-            raise NotImplementedError(
-                "sharded ForestSampler is not ported yet (ROADMAP item A7)")
+                 group=None, n_slots: int = 64, seed: int = 0, rebalance: bool = False,
+                 routed: bool = True, device="cuda"):
         self.device = resolve(device)
         self._raw = np.asarray(weights, np.float64)
         w = normalize_weights(self._raw)
         m = m or max(len(w), 16)
+        self.sharded = sharded
+        # owner-routed all-to-all drain (default) or the all-reduce oracle:
+        # the same draws
+        self.routed = routed
         self.streams = QmcStreams(n_slots, seed)
-        self.forest = build_forest(w, m, device=self.device)
+        if sharded:
+            self.group = group
+            self.forest = DF.build_forest_sharded_auto(
+                w, m, group=group, rebalance=rebalance, device=self.device)
+        else:
+            self.group = None
+            self.forest = build_forest(w, m, device=self.device)
 
     @classmethod
     def from_state(cls, forest_numpy: dict, streams_state: dict,
@@ -120,6 +136,7 @@ class ForestSampler(PackedForestHolder):
 
         s = cls.__new__(cls)
         s.device = resolve(device)
+        s.sharded, s.routed, s.group = False, True, None
         s.forest = forest_from_numpy(forest_numpy, s.device)
         s._raw = np.diff(np.asarray(forest_numpy["cdf"], np.float64))
         s.streams = QmcStreams.restore(streams_state)
@@ -129,10 +146,17 @@ class ForestSampler(PackedForestHolder):
         """In-place distribution update (new full weights, or a delta added
         to the current raw weights); slot streams keep their counters."""
         self._raw, w = updated_weights(self._raw, weights, delta=delta)
-        self.forest = build_forest(w, self.forest.m, device=self.device)
+        if self.sharded:
+            self.forest = DF.update_forest_sharded(
+                self.forest, w, group=self.group, device=self.device)
+        else:
+            self.forest = build_forest(w, self.forest.m, device=self.device)
 
     def sample(self, slots: np.ndarray) -> np.ndarray:
         xi = self.streams.next(slots)
+        if self.sharded:
+            return DF.sample_sharded(self.forest, xi, group=self.group,
+                                     routed=self.routed, device=self.device).cpu().numpy()
         idx = sample_forest(self.forest, xi, device=self.device, packed=self._packed)
         return idx.cpu().numpy()
 

@@ -32,8 +32,10 @@ the class stack, bit-equal to a from-scratch build because rows of the flat
 builder never interact. The marginal rebuilds from the distances of the
 ``forest_delta_update`` kernel (B4), unless its CDF bits did not move.
 
-The port of the JAX package's ``spatial/map2d.py``, unsharded: the sharded
-marginal waits for ``dist.forest`` (ROADMAP A4).
+With ``sharded=True`` the marginal is built, drained and updated through
+:mod:`repro_torch.dist.forest` instead (cell-partitioned over a
+``torch.distributed`` group; the same rows). The port of the JAX package's
+``spatial/map2d.py``.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from repro_torch.core.forest import forest_from_cdf
 from repro_torch.core.forest2d import build_forest_rows
 from repro_torch.core.sample import PackedForestHolder, sample_forest
 from repro_torch.device import resolve, to_device
+from repro_torch.dist import forest as DF
 from repro_torch.kernels import ops
 from repro_torch.pool.arena import _pow2_at_least
 from repro_torch.pool.batched import BatchedForest, batched_from_row_forest
@@ -85,14 +88,16 @@ class Map2DSampler(PackedForestHolder):
     ``quarantine`` | ``off``); an all-zero row is not a violation here.
     ``coalesce`` sorts each block's lanes in the descent kernel (the draws
     are the same either way). ``forest`` (from the base class) is the
-    marginal."""
+    marginal; ``sharded=True`` makes it a
+    :class:`~repro_torch.dist.forest.ShardedForest` over ``group``
+    (``rebalance``/``routed`` as in
+    :func:`~repro_torch.dist.forest.sample_sharded`), with ``m_marginal``
+    rounded up to a multiple of the shard count."""
 
     def __init__(self, img, *, m_marginal: int | None = None, min_class: int = 8,
-                 sharded: bool = False, coalesce: bool = True, fallback_slack: int = 2,
+                 sharded: bool = False, group=None, rebalance: bool = False,
+                 routed: bool = True, coalesce: bool = True, fallback_slack: int = 2,
                  policy: str = "reject", device="cuda"):
-        if sharded:
-            raise NotImplementedError(
-                "sharded Map2DSampler is not ported yet (ROADMAP A4)")
         if min_class < 1 or (min_class & (min_class - 1)):
             raise ValueError("min_class must be a positive power of two")
         self.device = resolve(device)
@@ -108,13 +113,23 @@ class Map2DSampler(PackedForestHolder):
         self.min_class = min_class
         self.fallback_slack = fallback_slack
         self.coalesce = coalesce
+        self.sharded = sharded
+        self.routed = routed
         self.last_drain: dict | None = None
 
         # marginal over row masses (zero-mass rows: zero-width intervals)
         self.m_marginal = int(m_marginal) if m_marginal else self.H
-        self.forest = forest_from_cdf(
-            build_cdf(normalize_weights(self.row_mass), device=self.device),
-            self.m_marginal, fallback_slack, device=self.device)
+        marg_w = normalize_weights(self.row_mass)
+        if sharded:
+            self.group = group
+            self.forest = DF.build_forest_sharded_auto(
+                marg_w, self.m_marginal, group=group, fallback_slack=fallback_slack,
+                rebalance=rebalance, device=self.device)
+            self.m_marginal = self.forest.m  # a multiple of the shard count
+        else:
+            self.group = None
+            self.forest = forest_from_cdf(build_cdf(marg_w, device=self.device),
+                                          self.m_marginal, fallback_slack, device=self.device)
 
         # conditionals: one CDF stack and one row-forest pass a class
         self.classes: dict[int, _CondClass] = {}
@@ -177,9 +192,13 @@ class Map2DSampler(PackedForestHolder):
         per-row ``build_forest`` + ``sample_forest`` reference over the
         padded rows."""
         u, v = self._uv(points2d)
-        row = sample_forest(self.forest, u, device=self.device, packed=self._packed)
+        if self.sharded:
+            row = DF.sample_sharded(self.forest, u, group=self.group,
+                                    routed=self.routed, device=self.device)
+        else:
+            row = sample_forest(self.forest, u, device=self.device, packed=self._packed)
         r = row.long()
-        fused = len(self.classes) == 1
+        fused = not self.sharded and len(self.classes) == 1
         lanes = (None if fused else self._group_t[r], self._slot_t[r], self._hi_t[r])
         col = torch.empty_like(row)
         forests = [c.forest for c in self.classes.values()]
@@ -191,7 +210,7 @@ class Map2DSampler(PackedForestHolder):
             touched = [widths[g] for g in torch.unique(lanes[0]).tolist()]
         self.last_drain = dict(
             launches=-(-len(forests) // 32), fused=fused, classes=touched,
-            marginal="fused" if fused else "direct")
+            marginal="sharded" if self.sharded else "fused" if fused else "direct")
         return row, col, u, v
 
     # -------------------------------------------------------------- updates
@@ -247,7 +266,15 @@ class Map2DSampler(PackedForestHolder):
             stats["rebuilt_rows"] += n_dirty
             stats["cond_launches"] += 1
 
-        new_cdf = build_cdf(normalize_weights(self.row_mass), device=self.device)
+        marg_w = normalize_weights(self.row_mass)
+        if self.sharded:
+            self.forest, mst = DF.update_forest_sharded(
+                self.forest, marg_w, group=self.group,
+                fallback_slack=self.fallback_slack, with_stats=True, device=self.device)
+            stats["marginal_rebuilt"] = bool(mst["rebuilt"])
+            stats["marginal_shards"] = mst
+            return stats
+        new_cdf = build_cdf(marg_w, device=self.device)
         old_cdf = self.forest.cdf
         if torch.equal(old_cdf.view(torch.int32), new_cdf.view(torch.int32)):
             return stats
@@ -265,7 +292,7 @@ class Map2DSampler(PackedForestHolder):
         return dict(
             H=self.H,
             m_marginal=self.m_marginal,
-            sharded=False,
+            sharded=self.sharded,
             policy=self.policy,
             classes={
                 wc: dict(rows=len(c.row_ids), rebuilds=c.rebuilds,

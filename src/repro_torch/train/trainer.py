@@ -7,6 +7,14 @@ trajectory. The port keeps float32 master parameters and computes in
 ``cfg.dtype`` (each layer casts at use), as the JAX package does; the
 parameters are initialized from a torch generator seeded with ``seed``
 (other draws than JAX's PRNG, the same distributions).
+
+Checkpoints are written in the JAX trainer's layout: the tree ``(params,
+OptState)`` keyed by JAX's pytree paths (``0/layers/b0/wq``, ``1/step``,
+``1/m/embed``, ...), per-period leaves stacked over the periods, weights
+``(in, out)``, each leaf in its own dtype. The map
+(:mod:`repro_torch.models.layout`) runs on host copies at the trainer's
+boundary; ``ckpt.save``/``restore`` stay generic. One checkpoint directory
+therefore resumes in either package.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ from repro_torch.data.pipeline import make_batch
 from repro_torch.device import resolve
 from repro_torch.models import init_params
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layout import named_from_jax, named_to_jax
 
 from .optimizer import AdamWConfig, OptState, init_opt
 from .step import make_train_step
@@ -66,18 +75,36 @@ class Trainer:
         params.requires_grad_(True)
         return params, init_opt(self.oc, params)
 
-    @staticmethod
-    def _tree(params, opt: OptState):
-        return (dict(params.named_parameters()), opt)
+    def _tree(self, params, opt: OptState, leaf=None):
+        """``(params, OptState)`` in the JAX trainer's checkpoint layout,
+        each tensor mapped through ``leaf`` (default: a host copy)."""
+        leaf = leaf or (lambda t: t.detach().cpu())
+
+        def jax_layout(named):
+            return named_to_jax({k: leaf(t) for k, t in named.items()}, self.cfg)
+
+        return (jax_layout(dict(params.named_parameters())),
+                OptState(leaf(opt.step), jax_layout(opt.m), jax_layout(opt.v)))
+
+    def _restore(self, params, opt: OptState) -> OptState:
+        """Load the latest checkpoint (of either package) into ``params``
+        and ``opt`` in place; returns the restored state."""
+        # shapes and dtypes only: no host copy of the model
+        like = self._tree(params, opt, leaf=lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                                                  device="meta"))
+        (tree_p, tree_o), _ = self.mgr.restore_latest(like)
+        with torch.no_grad():
+            for dst, src in ((dict(params.named_parameters()), tree_p),
+                             (opt.m, tree_o.m), (opt.v, tree_o.v)):
+                for k, t in named_from_jax(src, self.cfg).items():
+                    dst[k].copy_(t)
+        return OptState(tree_o.step.to(opt.step.device), opt.m, opt.v)
 
     def run(self) -> dict[str, Any]:
         params, opt = self.init_state()
         start = 0
         if latest_step(self.tc.ckpt_dir) is not None:
-            (named, opt), _ = self.mgr.restore_latest(self._tree(params, opt))
-            with torch.no_grad():
-                for k, p in params.named_parameters():
-                    p.copy_(named[k])
+            opt = self._restore(params, opt)
             start = int(opt.step)
             self.log(f"resumed from step {start}")
         metrics_hist = []

@@ -1106,3 +1106,67 @@ def test_map2d_multi_class_drain_and_update_on_card(cuda):
             assert torch.equal(a, b), wc
     for a, b in zip(m.forest, fresh.forest):
         assert torch.equal(a, b)
+
+
+def test_save_state_round_trips_card_tensors_bit_for_bit(cuda, tmp_path):
+    """``save_state`` of CUDA tensors (bfloat16 included) loads back with
+    the same bits: bfloat16 as a CPU bf16 tensor, the rest as numpy."""
+    from repro_torch.ckpt import load_state, save_state
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    blob = {"f": torch.rand(1000, generator=g, device=cuda),
+            "bf": torch.randn(64, 33, generator=g, device=cuda).to(torch.bfloat16),
+            "i": torch.arange(7, dtype=torch.int32, device=cuda), "t": (1, "x")}
+    save_state(tmp_path, blob, 2)
+    got, step = load_state(tmp_path)
+    assert step == 2 and got["t"] == (1, "x")
+    assert got["bf"].dtype == torch.bfloat16
+    assert torch.equal(got["bf"].view(torch.int16), blob["bf"].cpu().view(torch.int16))
+    assert np.array_equal(got["f"].view(np.int32), blob["f"].cpu().numpy().view(np.int32))
+    assert np.array_equal(got["i"], blob["i"].cpu().numpy())
+
+
+def test_sample_sharded_on_one_rank_nccl_equals_sample_forest(cuda, tmp_path):
+    """A single-rank nccl group: the sharded build gathers to build_forest's
+    arrays and both drains equal sample_forest; B2/B3 launch on the way."""
+    import torch.distributed as dist
+
+    from repro_torch.core import sample_forest
+    from repro_torch.dist import forest as DF
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        rng = np.random.default_rng(3)
+        w = (rng.random(1 << 16) ** 4 + 1e-6).astype(np.float32)
+        before = (cdf_scan.launches, forest_delta.launches)
+        sf = DF.build_forest_sharded(w, 1 << 14, device=cuda)
+        assert cdf_scan.launches > before[0] and forest_delta.launches > before[1]
+        f = build_forest(w, 1 << 14, device=cuda)
+        g = DF.gather_forest(sf)
+        for a, b in zip(g, f):
+            assert torch.equal(a, b)
+        xi = torch.rand(1 << 18, generator=torch.Generator(device=cuda).manual_seed(1),
+                        device=cuda)
+        want = sample_forest(f, xi, device=cuda)
+        for routed in (True, False):
+            assert torch.equal(DF.sample_sharded(sf, xi, routed=routed, device=cuda), want)
+        with pytest.raises(ValueError, match="gloo"):
+            DF.sample_sharded(sf, xi.cpu(), device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_verify_pool_names_a_corrupted_card_row(cuda):
+    from repro_torch.robust import verify_pool
+
+    rng = np.random.default_rng(4)
+    pool = ForestPool(device=cuda)
+    hs = pool.insert_many([rng.random(n) + 1e-3 for n in (5, 40, 300, 40)],
+                          method=["forest", "forest", "alias", "alias"])
+    assert verify_pool(pool) == []
+    pool.classes[hs[1].size_class].forest.cdf[hs[1].row, 7] = float("nan")
+    pool.alias_classes[hs[2].size_class].table.q[hs[2].row, 3] = 2.0
+    assert verify_pool(pool) == [
+        f"forest[64] row {hs[1].row}: cdf has non-finite entries",
+        f"alias[512] row {hs[2].row}: alias split points q outside [0, 1]"]

@@ -281,8 +281,8 @@ def test_make_batch_equal_jax():
 
 
 def test_mixture_refusals():
-    with pytest.raises(NotImplementedError, match="A7"):
-        MixtureSampler((0.5, 0.5), sharded=True, device="cpu")
+    with pytest.raises(RuntimeError, match="process group"):
+        MixtureSampler((0.5, 0.5), sharded=True, device="cpu")  # no group initialized
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             MixtureSampler((0.5, 0.5))
