@@ -95,6 +95,19 @@ the ignored ``build/`` directory), then:
    step 2 and resumed, bitwise equal under deterministic algorithms; the
    mixture's forest kernels counted; step time, the profile of one step,
    and the training launcher once in a subprocess;
+   9b. the families phase (``families_path``): the six LM families beyond
+   the dense one, one model at a time in bf16 with seeded weights, each
+   freed before the next and its cut printed (``FAMILIES``: xLSTM-1.3B
+   uncut, Kimi K2 and Llama 4 Maverick one layer each, Jamba 1.5 Large one
+   period at d_model 4096, Whisper-small uncut with 1500 frames, InternVL2
+   16 layers): a 16-slot ``ServeEngine`` (for Whisper and InternVL,
+   ``prefill`` and ``decode_step`` over 16 rows), every sampler call
+   checked against the plain versions; decode after prefill against
+   prefill of the longer prompt, drop-free (Whisper also in float32);
+   flash against einsum eval nll with B10 once per attention layer;
+   prefill ms, decode tokens/s, a decode step's launches and idle share,
+   peak memory, and each model's B3/B9/B10 launches (their device ms from
+   the path's second run, each model under torch.profiler);
    3b. the dist phase (``dist_path``) on a single-rank nccl group: the
    same weights through ``build_cdf_sharded`` and ``build_forest_sharded``,
    the 2^24 uniforms through ``sample_sharded`` routed and with the
@@ -112,17 +125,18 @@ the ignored ``build/`` directory), then:
    (Qwen1.5-0.5B, 16 slots, KV cache) saved mid-flight through disk, their
    next drains and tokens equal to the originals';
 10. prints the kernels line (launch counts from the runs of steps 3, 3b, 4,
-   5, 6, 7b, 8 and 9's eval and train paths, each with every count set to 0
-   just before it; each kernel's launches and summed device time on each of
-   the nine paths, main, dist, paper, map2d, pool, robust, serve, eval and
-   train: the time
+   5, 6, 7b, 8, 9's eval and train paths and 9b, each with every count set
+   to 0 just before it; each kernel's launches and summed device time on
+   each of the ten paths, main, dist, paper, map2d, pool, robust, serve,
+   eval, train and families: the time
    from torch.profiler, CUDA activity only, by the kernels' symbols, around
    a second counted run of each path
    at the end, so the first runs' times carry no tracing cost; ``cdf_scan``
    also carries its decode-shape times as ``at_decode``, B6 and B8 their
    drain-shape times as ``at_drain``, B9 its shapes and the launch floor as
    ``at_shapes`` and ``launch_floor_ms``, B10 its float32 rows as
-   ``at_f32``), then the result line as the last line of standard output.
+   ``at_f32`` and its hd-112 row as ``at_hd112``), then the result line as
+   the last line of standard output.
 
 Any failed check raises and exits non-zero. Without a CUDA device, or
 without the repository around it, it exits non-zero and prints no result.
@@ -412,27 +426,42 @@ def device_ms(fn, reps: int) -> float:
 
 def profile_calls(calls) -> None:
     """Device busy share and the heaviest kernels of each ``(name, fn)``
-    call, from torch.profiler."""
+    call, from torch.profiler (``profile_one``)."""
+    for name, fn in calls:
+        profile_one(name, fn)
+
+
+def profile_one(name: str, fn, trace: bool = False) -> dict:
+    """Wall, device busy time, idle share and kernel launches of one call
+    (torch.profiler, CPU and CUDA activity), printed with the heaviest
+    kernels; empty where the profiler measured no device time. Where an
+    outer trace is running (``trace``), the call runs untraced and nothing
+    is read."""
     from torch.profiler import ProfilerActivity, profile
 
-    for name, fn in calls:
+    if trace:
+        fn()
+        return {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
-        kernels = device_events(prof)
-        busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-        if busy_ms <= 0:
-            print(f"profile {name}: device time not measured by the profiler", flush=True)
-            continue
-        top = sorted(kernels, key=dev_us, reverse=True)[:6]
-        print(f"profile {name}: wall {wall_ms:.3f} ms (profiled), device busy "
-              f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
-              f"{sum(e.count for e in kernels)} kernel launches; top: "
-              + "; ".join(f"{e.key[:48]} x{e.count} {dev_us(e) / 1e3:.3f} ms"
-                          for e in top), flush=True)
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kernels = device_events(prof)
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    if busy_ms <= 0:
+        print(f"profile {name}: device time not measured by the profiler", flush=True)
+        return {}
+    out = dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms,
+               launches=sum(e.count for e in kernels))
+    top = sorted(kernels, key=dev_us, reverse=True)[:6]
+    print(f"profile {name}: wall {wall_ms:.3f} ms (profiled), device busy "
+          f"{busy_ms:.3f} ms, idle share {out['idle']:.3f}, "
+          f"{out['launches']} kernel launches; top: "
+          + "; ".join(f"{e.key[:48]} x{e.count} {dev_us(e) / 1e3:.3f} ms"
+                      for e in top), flush=True)
+    return out
 
 
 # The kernels each wrapper launches, by symbol: the profiler's keys are these
@@ -453,7 +482,8 @@ KERNEL_SYMBOLS = {
     "sample_rows": ("sample_rows_kernel",),
     "flash_attention": ("flash_attention_f32_tf32x3", "flash_attention_bf16_wgmma"),
 }
-PATHS = ("main", "dist", "paper", "map2d", "pool", "robust", "serve", "eval", "train")
+PATHS = ("main", "dist", "paper", "map2d", "pool", "robust", "serve", "eval", "train",
+         "families")
 
 
 def kernel_of(key: str):
@@ -2240,11 +2270,13 @@ TRAIN_ARCH = "qwen1_5_0_5b"
 BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores
 TF32_OPS_PER_S = 495e12     # H100 SXM dense TF32 tensor cores
 # (B, S, H, KV, hd, dtype, causal): the eval shape, Qwen3-4B's GQA, ragged
-# float32, the eval shape in float32
+# float32, the eval shape in float32, Kimi K2's heads (hd 112: the hd-128
+# tile over zero-filled columns)
 FLASH_SHAPES = ((2, 2048, 16, 16, 64, torch.bfloat16, True),
                 (1, 1024, 32, 8, 128, torch.bfloat16, True),
                 (1, 1000, 4, 2, 64, torch.float32, False),
-                (2, 2048, 16, 16, 64, torch.float32, True))
+                (2, 2048, 16, 16, 64, torch.float32, True),
+                (1, 1024, 64, 8, 112, torch.bfloat16, True))
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # the JAX suite's
 # B10's float32 times per call before its three-TF32 tensor-core body (the
 # CUDA-core body), measured by tools/ab_flash_f32.py on an NVIDIA H100 80GB
@@ -2266,8 +2298,8 @@ def flash_sass_check() -> str:
     sass = {n: t for n, t in _build.sass().items() if "flash_attention" in n}
     bf16 = {n: t.count("HGMMA") for n, t in sass.items() if "bf16" in n}
     f32 = {n: t.count("HGMMA") for n, t in sass.items() if "f32" in n}
-    check(len(bf16) == 3 and all(bf16.values()), f"HGMMA in every bf16 B10 instance: {bf16}")
-    check(len(f32) == 3 and all(f32.values()), f"HGMMA in every float32 B10 instance: {f32}")
+    check(len(bf16) == 4 and all(bf16.values()), f"HGMMA in every bf16 B10 instance: {bf16}")
+    check(len(f32) == 4 and all(f32.values()), f"HGMMA in every float32 B10 instance: {f32}")
     return (f"HGMMA instructions per bf16 instance {sorted(bf16.values())}, "
             f"per float32 instance {sorted(f32.values())}: all on the tensor cores")
 
@@ -2335,6 +2367,11 @@ def flash_kernels(device, gen, build_s: float) -> dict:
               f"{flops / r['ms'] / 1e9:.1f} TFLOP/s, {r['bound'][0] / r['ms']:.1%} of the "
               f"bound's rate{extra}", flush=True)
         rows.setdefault("flash_attention", r)  # the first shape: the eval path's
+        if hd == 112:
+            rows["flash_attention"]["at_hd112"] = {
+                "shape": [B, S, H, KV, hd], "causal": causal, "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "max_abs_err": err}
         if dt == torch.float32:
             rows["flash_attention"].setdefault("at_f32", []).append(
                 {"shape": [B, S, H, KV, hd], "causal": causal, "ms": r["ms"],
@@ -2510,6 +2547,377 @@ def train_launcher(ckpt_root: Path) -> None:
           f"in {time.perf_counter() - t:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The families phase: the six LM families beyond the dense one, one model at
+# a time in bf16 with seeded weights, each freed before the next.
+# ---------------------------------------------------------------------------
+
+FAMILY_SLOTS = 16           # engine slots, and rows of the model-level runs
+FAMILY_MAX_NEW = 32         # tokens a request
+FAMILY_MAX_SEQ = 128        # KV budget
+FAMILY_PROMPTS = (8, 32)    # engine prompt lengths, uniform
+FAMILY_PREFILL = 32         # prefill ms: one prompt of this many tokens
+WHISPER_FRAMES = 1500       # Whisper's 30 s of audio frames
+# decode after prefill(32) vs prefill(33): the logits' relative L2 error
+# |got - want| / |want|. A wrong state gives logits independent of the right
+# ones, ~1.4. In bf16 the two paths round at other points (the conv's running
+# sum beside decode's one product; the mLSTM's chunked form, whose weights
+# and outputs are bf16, beside the float32 state of the step form), and the
+# error grows with depth: on the CPU in bf16, 0.035 for Jamba's 8-layer
+# period at d_model 512, 0 for the attention-only families. xLSTM carries
+# more: the reference's chunked mLSTM normalizes by sum_t D_jt (q.k_t)^2 where
+# its step form sums D_jt (q.k_t) (ROADMAP C11), and the port follows it, so
+# its decode and prefill differ wherever |q.n| > 1, in float32 too (0.112 for
+# 48 layers at d_model 512 in JAX and in the port on the CPU; 0.139 at
+# published widths on the card, 0.268 in bf16). Whisper, which fits the card
+# in float32, is also held in float32 at published widths to
+# DECODE_REL2_F32 (float32 at reduced widths agrees with JAX to 1e-6 on the
+# CPU: tests/test_torch_families.py).
+DECODE_REL2_BF16 = 0.5
+DECODE_REL2_F32 = 1e-3
+FAMILY_F32_CHECK = ("whisper_small",)
+# (arch, run, overrides of the published config, the cut as printed)
+FAMILIES = (
+    ("xlstm_1_3b", "engine", {},
+     "none: published widths, full depth (48 layers)"),
+    ("kimi_k2_1t_a32b", "engine", dict(n_layers=1),
+     "depth cut to 1 of 61 layers; published widths (384 experts, top-8, 1 shared, hd 112)"),
+    ("llama4_maverick_400b_a17b", "engine", dict(n_layers=1),
+     "depth cut to 1 of 48 layers; published widths (128 experts, top-1, 1 shared)"),
+    ("jamba_1_5_large_398b", "engine", dict(n_layers=8, d_model=4096, d_ff=12288, head_dim=128),
+     "one period of 8 layers (of 9) at d_model 4096 (of 8192), d_ff 12288 (of 24576), "
+     "head_dim 128; heads, experts, top-k, SSM and vocab published (one period at "
+     "published widths is ~90 GB)"),
+    ("whisper_small", "model", {},
+     "none: 12 encoder and 12 decoder layers, 1500 frames"),
+    ("internvl2_76b", "model", dict(n_layers=16),
+     "depth cut to 16 of 80 layers; published widths"),
+)
+FAMILY_EVAL = {"xlstm_1_3b": (1, 256), "whisper_small": (1, WHISPER_FRAMES)}  # else (1, 2048)
+
+
+def family_cfg(arch: str, over: dict):
+    import dataclasses
+
+    import repro_torch.configs as C
+
+    return dataclasses.replace(C.get(arch), **over)
+
+
+def family_engine(device, cfg, model, trace: bool) -> dict:
+    """A ServeEngine of FAMILY_SLOTS slots over the model: one request a
+    slot (prompts of 8..32 tokens, 32 new tokens each, ``inverse_qmc``), run
+    to completion; the third step (every slot decoding) profiled, the other
+    pure decode steps timed. Every sampler call's tokens are held to the
+    plain inverse on the same card CDF rows."""
+    from repro_torch.models import prefill
+    from repro_torch.serve import ServeEngine, TokenSampler
+
+    toks = torch.randint(0, cfg.vocab, (1, FAMILY_PREFILL), device=device,
+                         generator=torch.Generator(device=device).manual_seed(3))
+    prefill_ms = (None if trace else
+                  cuda_ms(lambda: prefill(model, cfg, {"tokens": toks}, FAMILY_MAX_SEQ), 3))
+    eng = ServeEngine(model, cfg, n_slots=FAMILY_SLOTS, max_seq=FAMILY_MAX_SEQ,
+                      sampler=TokenSampler(mode="inverse_qmc", n_slots=FAMILY_SLOTS,
+                                           device=device), device=device)
+    reqs = serve_requests(cfg, FAMILY_SLOTS, 0, FAMILY_MAX_NEW, *FAMILY_PROMPTS, seed=1)
+    for r in reqs:
+        eng.submit(r)
+    decode_s, decode_tokens, step = 0.0, 0, {}
+    with SamplerCalls() as rec:
+        while eng.queue or any(eng.slots):
+            if eng.steps == 2:
+                step = profile_one(f"{cfg.name} engine decode step ({FAMILY_SLOTS} busy slots)",
+                                   eng.step, trace)
+                continue
+            queued, before = len(eng.queue), sum(len(r.out) for r in reqs)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            if eng.steps > 1 and len(eng.queue) == queued:  # a pure decode step
+                decode_s += time.perf_counter() - t
+                decode_tokens += sum(len(r.out) for r in reqs) - before
+            check(eng.steps < 4 * FAMILY_MAX_NEW, "engine terminates")
+    check(all(r.done and r.error is None and len(r.out) == FAMILY_MAX_NEW for r in reqs),
+          f"{cfg.name}: every request served in full")
+    check(all(0 <= t_ < cfg.vocab for r in reqs for t_ in r.out), "token range")
+    for c in rec.calls if not trace else ():  # the first run checks them
+        check_sampler_call(c)
+    return dict(prefill_ms=prefill_ms, decode_tokens_per_s=decode_tokens / decode_s,
+                step=step, sampler_calls=len(rec.calls))
+
+
+def family_model_level(device, cfg, model, trace: bool) -> dict:
+    """The encoder-decoder and the embed frontend, which the engine does not
+    prefill (as in the JAX package): FAMILY_SLOTS rows of ``make_batch``'s
+    synthetic inputs (Whisper: 1500 frames and a 32-token prompt; InternVL:
+    32 prompt embeddings) through ``prefill``, then 31 ``decode_step`` calls
+    (InternVL fed the next synthetic embedding, having no token table),
+    each row's token drawn by a TokenSampler and held to the plain inverse
+    on the same card CDF rows; the third step profiled, the others timed."""
+    from repro_torch.data import make_batch
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serve import TokenSampler
+
+    B, P = FAMILY_SLOTS, FAMILY_PREFILL
+    n = WHISPER_FRAMES if cfg.encoder_layers else P + FAMILY_MAX_NEW
+    raw = make_batch(cfg, 0, B, n)
+    key = "embeds" if cfg.frontend == "embed" else "tokens"
+    batch = {key: torch.as_tensor(raw[key][:, :P], device=device)}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.as_tensor(raw["frames"], device=device)
+    one = {k: v[:1] for k, v in batch.items()}
+    prefill_ms = None if trace else cuda_ms(lambda: prefill(model, cfg, one, FAMILY_MAX_SEQ), 3)
+    sampler = TokenSampler(mode="inverse_qmc", n_slots=B, device=device)
+    slots = np.arange(B)
+    decode_s, step = 0.0, {}
+    with SamplerCalls() as rec:
+        logits, cache, enc_out = prefill(model, cfg, batch, FAMILY_MAX_SEQ)
+        tok = sampler.sample(logits, slots)
+        out = [tok]
+        for i in range(FAMILY_MAX_NEW - 1):
+            x = (torch.as_tensor(raw["embeds"][:, P + i:P + i + 1], device=device)
+                 if cfg.frontend == "embed" else tok)
+            pos = np.full(B, P + i)
+
+            def one_step():
+                nonlocal logits, tok
+                logits, _ = decode_step(model, cfg, cache, x, pos, enc_out)
+                tok = sampler.sample(logits, slots)
+
+            if i == 2:
+                step = profile_one(f"{cfg.name} decode step ({B} rows)", one_step, trace)
+            else:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                one_step()
+                torch.cuda.synchronize()
+                decode_s += time.perf_counter() - t
+            out.append(tok)
+    toks = np.stack(out, axis=1)
+    check(toks.shape == (B, FAMILY_MAX_NEW) and ((0 <= toks) & (toks < cfg.vocab)).all(),
+          f"{cfg.name}: every row's tokens in range")
+    for c in rec.calls if not trace else ():  # the first run checks them
+        check_sampler_call(c)
+    return dict(prefill_ms=prefill_ms,
+                decode_tokens_per_s=B * (FAMILY_MAX_NEW - 2) / decode_s,
+                step=step, sampler_calls=len(rec.calls))
+
+
+def family_decode_check(device, cfg, model) -> dict:
+    """decode_step after prefill(32) against prefill(33) at its last
+    position, in the model's dtype (bf16: within DECODE_REL2_BF16; float32:
+    DECODE_REL2_F32, matmuls in full float32); drop-free: ``capacity_factor
+    = max(8, E / k)``, so every expert's capacity holds the whole group (a
+    token takes an expert once)."""
+    import dataclasses
+
+    from repro_torch.data import make_batch
+    from repro_torch.models import decode_step, prefill
+
+    S = FAMILY_PREFILL
+    cf = max(8.0, cfg.n_experts / cfg.top_k) if cfg.n_experts else cfg.capacity_factor
+    c8 = dataclasses.replace(cfg, capacity_factor=cf)
+    raw = make_batch(c8, 7, 2, WHISPER_FRAMES if cfg.encoder_layers else S + 1)
+    key = "embeds" if cfg.frontend == "embed" else "tokens"
+    seq = torch.as_tensor(raw[key][:, :S + 1], device=device)
+    extra = {"frames": torch.as_tensor(raw["frames"], device=device)} if cfg.encoder_layers else {}
+    want, _, _ = prefill(model, c8, {key: seq, **extra}, 64)
+    _, cache, enc_out = prefill(model, c8, {key: seq[:, :S], **extra}, 64)
+    nxt = seq[:, S:S + 1] if cfg.frontend == "embed" else seq[:, S]
+    got, _ = decode_step(model, c8, cache, nxt, torch.full((2,), S), enc_out)
+    diff = got.float() - want.float()
+    err, scale = float(diff.abs().max()), float(want.float().abs().max())
+    rel2 = float(diff.norm() / want.float().norm())
+    bound = DECODE_REL2_F32 if cfg.dtype == "float32" else DECODE_REL2_BF16
+    check(math.isfinite(rel2) and rel2 <= bound,
+          f"{cfg.name}: {cfg.dtype} decode after prefill, relative L2 {rel2:.3e} within "
+          f"{bound}")
+    return dict(decode_err=err, decode_rel2=rel2, logit_max=scale, capacity_factor=cf)
+
+
+def family_decode_check_f32(device, cfg) -> dict:
+    """family_decode_check in float32 at published widths on a model of its
+    own (seed 1), TF32 off."""
+    import dataclasses
+    import gc
+
+    from repro_torch.models import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    model = init_params(c32, torch.Generator(device=device).manual_seed(1), device)
+    out = family_decode_check(device, c32, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {f"f32_{k}": v for k, v in out.items()}
+
+
+def family_flash(device, cfg, model, arch: str) -> tuple[dict, dict]:
+    """``loss_fn`` without gradients on one ``make_batch`` batch with
+    ``attn_impl="flash"``: B10 launched once per attention layer (decoder
+    and encoder). Returns (its record, the batch)."""
+    import dataclasses
+
+    from repro_torch.data import make_batch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import loss_fn
+
+    B, S = FAMILY_EVAL.get(arch, (1, 2048))
+    batch = make_batch(cfg, 0, B, S)
+    n_attn = cfg.block_pattern.count("attn") * cfg.n_periods + cfg.encoder_layers
+    before = flash_attention.launches
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, mf = loss_fn(model, dataclasses.replace(cfg, attn_impl="flash"), batch)
+        nf = float(mf["nll"])
+        flash_s = time.perf_counter() - t
+    check(flash_attention.launches - before == n_attn,
+          f"{cfg.name}: B10 once per attention layer of the flash forward ({n_attn})")
+    return dict(eval_shape=(B, S), nll_flash=nf, eval_flash_s=flash_s,
+                b10_per_forward=n_attn), batch
+
+
+def family_einsum_check(cfg, model, batch: dict, nf: float) -> dict:
+    """The same ``loss_fn`` with ``attn_impl="einsum"``: its nll within
+    EVAL_NLL_ATOL of the flash forward's ``nf``."""
+    from repro_torch.models import loss_fn
+
+    with torch.no_grad():
+        ne = float(loss_fn(model, cfg, batch)[1]["nll"])
+    check(math.isfinite(nf) and math.isfinite(ne) and abs(nf - ne) <= EVAL_NLL_ATOL,
+          f"{cfg.name}: flash and einsum eval nll agree ({nf} vs {ne})")
+    return dict(nll_einsum=ne)
+
+
+def family_run(device, arch: str, run: str, over: dict, cut: str, trace: bool) -> dict:
+    """One family: build, serve (engine or model level), the decode check
+    and the eval check, with the model's own launch counts of B3, B9 and
+    B10, its peak memory and its wall; under ``trace`` the serving run and
+    the flash forward, where B3, B9 and B10 launch, inside one
+    torch.profiler session (CUDA activity) for their device ms (checked: no
+    launch of theirs falls outside). The model is freed before the next
+    family."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.cdf_scan import cdf_scan
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.sample_tiled import sample_rows
+    from repro_torch.models import init_params
+
+    cfg = family_cfg(arch, over)
+    print(f"families: {cfg.name} cut: {cut}", flush=True)
+    kernels = {"cdf_scan": cdf_scan, "sample_rows": sample_rows,
+               "flash_attention": flash_attention}
+    before = {k: fn.launches for k, fn in kernels.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    torch.cuda.synchronize()
+    rec = dict(arch=arch, name=cfg.name, run=run, init_s=time.perf_counter() - t,
+               params=sum(p.numel() for p in model.parameters()),
+               weight_gib=sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30)
+    # B3 and B9 launch in the serving run, B10 in the flash forward: under
+    # ``trace`` both run inside one profiler session (the flash forward only
+    # where it launches B10), the rest outside it
+    attn = bool(cfg.block_pattern.count("attn") or cfg.encoder_layers)
+    ctx = profile(activities=[ProfilerActivity.CUDA]) if trace else contextlib.nullcontext()
+    with ctx as prof:
+        rec.update((family_engine if run == "engine" else family_model_level)(
+            device, cfg, model, trace))
+        if attn:
+            flash, batch = family_flash(device, cfg, model, arch)
+        torch.cuda.synchronize()
+    in_traced = {k: fn.launches - before[k] for k, fn in kernels.items()}
+    if not attn:
+        flash, batch = family_flash(device, cfg, model, arch)
+    rec.update(flash)
+    if not trace:  # the checks launch none of B3, B9, B10: the first run makes them
+        rec.update(family_decode_check(device, cfg, model))
+        if arch in FAMILY_F32_CHECK:
+            rec.update(family_decode_check_f32(device, cfg))
+        rec.update(family_einsum_check(cfg, model, batch, rec["nll_flash"]))
+    del batch
+    torch.cuda.synchronize()
+    rec["wall_s"] = time.perf_counter() - t
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["launches"] = {k: fn.launches - before[k] for k, fn in kernels.items()}
+    if trace:
+        check(in_traced == rec["launches"], f"{cfg.name}: every B3/B9/B10 launch traced")
+        rec["device_ms"] = kernel_device_ms(prof)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        return rec
+    step = rec["step"]
+    print(f"families {cfg.name}: {rec['params']} parameters ({rec['weight_gib']:.2f} GiB, "
+          f"seeded init {rec['init_s']:.3f} s; the model's run {rec['wall_s']:.1f} s, host "
+          f"clock); prefill of {FAMILY_PREFILL} tokens "
+          f"{rec['prefill_ms']:.3f} ms (CUDA events, median of 3); decode "
+          f"{rec['decode_tokens_per_s']:.1f} tokens/s ({FAMILY_SLOTS} "
+          f"{'slots' if run == 'engine' else 'rows'}, host clock, synchronized); decode step "
+          + (f"{step['launches']} launches, idle share {step['idle']:.3f}, device busy "
+             f"{step['busy_ms']:.3f} of {step['wall_ms']:.3f} ms" if step else "not measured")
+          + f"; peak memory {rec['peak_gib']:.2f} GiB; bf16 decode vs prefill relative L2 "
+          f"{rec['decode_rel2']:.3e} (bound {DECODE_REL2_BF16}; max |err| "
+          f"{rec['decode_err']:.3e}, max |logit| {rec['logit_max']:.3f}; capacity_factor "
+          f"{rec['capacity_factor']}"
+          + (f"; float32: {rec['f32_decode_rel2']:.3e}, bound {DECODE_REL2_F32}"
+             if "f32_decode_rel2" in rec else "") + "); eval "
+          f"{rec['eval_shape']} nll flash {rec['nll_flash']:.6f} einsum {rec['nll_einsum']:.6f}"
+          f" (bound {EVAL_NLL_ATOL}), B10 {rec['b10_per_forward']} a forward; launches "
+          + ", ".join(f"{k} {v}" for k, v in rec["launches"].items()), flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def families_path(device, trace: bool = False, families=FAMILIES) -> list:
+    """Every family of FAMILIES in turn (see family_run)."""
+    return [family_run(device, arch, run, over, cut, trace)
+            for arch, run, over, cut in families]
+
+
+def families_traced(device, counts: dict) -> tuple[list, dict]:
+    """The families path a second time with every count at 0, printing muted
+    and each model inside torch.profiler: its counts must equal the first
+    run's. Prints each model's B3/B9/B10 device ms; returns the records and
+    the path's summed device ms by kernel."""
+    from repro_torch.kernels.cdf_scan import cdf_scan
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.sample_tiled import sample_rows
+
+    for fn in (cdf_scan, sample_rows, flash_attention):
+        fn.launches = 0
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        recs = families_path(device, trace=True)
+    print(f"families path, second run (traced): {time.perf_counter() - t:.1f} s, host clock",
+          flush=True)
+    total = dict.fromkeys(KERNEL_SYMBOLS, 0.0)
+    for r in recs:
+        for k, v in r["device_ms"].items():
+            total[k] += v
+        check(all(r["device_ms"][k] > 0 for k, c in r["launches"].items() if c),
+              f"{r['name']}: device time under its kernels' symbols")
+        print(f"families {r['name']} kernel device ms (profiler, a second counted run, "
+              f"{r['wall_s']:.1f} s): "
+              + ", ".join(f"{k} {r['device_ms'][k]:.4f} ({r['launches'][k]} launches)"
+                          for k in ("cdf_scan", "sample_rows", "flash_attention")), flush=True)
+    got = {k: sum(r["launches"][k] for r in recs) for k in ("cdf_scan", "sample_rows",
+                                                             "flash_attention")}
+    check(all(got[k] == counts[k] for k in got),
+          f"the families path launches the same kernels when run again ({got} vs {counts})")
+    return recs, total
+
+
 def run(build_s: float) -> dict:
     """The whole smoke run on the card (``build_s``: the kernel library's
     build time); returns the kernels record."""
@@ -2664,6 +3072,9 @@ def run(build_s: float) -> dict:
     train_timing(trec, tcfg, device)
     del trec
     train_launcher(ckpt_root)
+    counted("families", families_path, device)
+    for name in ("cdf_scan", "sample_rows", "flash_attention"):
+        check(counts["families"][name] > 0, f"{name} launched on the families path")
 
     profiled("main", main_path, device, weights, m, n_draws, gen)
     profiled("dist", dist_path, device, weights, m, n_draws, gen)
@@ -2676,6 +3087,7 @@ def run(build_s: float) -> dict:
     profiled("serve", serve_path, device, cfg)
     profiled("eval", eval_path, device, tcfg)
     profiled("train", train_path, device, tcfg, ckpt_root)
+    _, path_ms["families"] = families_traced(device, counts["families"])
 
     sources = {k: (f"{k}.cu", r) for k, r in (
         ("cdf_scan", "src/repro/kernels/cdf_scan.py:78"),
@@ -2705,8 +3117,8 @@ def run(build_s: float) -> dict:
         })
         if "at_drain" in r:
             kernels[-1]["at_drain"] = r["at_drain"]
-        for key in ("sector_ms", "packed_sector_ms", "one_call_ms", "at_f32", "at_shapes",
-                    "launch_floor_ms"):
+        for key in ("sector_ms", "packed_sector_ms", "one_call_ms", "at_f32", "at_hd112",
+                    "at_shapes", "launch_floor_ms"):
             if key in r:
                 kernels[-1][key] = r[key]
         if "at_decode" in r:

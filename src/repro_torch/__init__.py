@@ -20,14 +20,17 @@ Layers on the card so far:
   ``alias_build_batched`` and ``alias_sample_batched`` (and the batched
   builds' ``cdf_scan`` and ``forest_delta``). ``interop`` restores a
   JAX pool or sampler snapshot into the port;
-* model-backed serving: the dense LM (``models``: ``init_params``,
-  ``prefill``, ``decode_step``; ``configs`` holds the dense
-  architectures), ``serve.sampler.TokenSampler`` and
+* model-backed serving: the LM of every family (``models``:
+  ``init_params``, ``prefill``, ``decode_step`` over attention, Mamba,
+  mLSTM and sLSTM blocks, dense and MoE MLPs, the Whisper encoder and the
+  embedding frontend; ``configs`` holds the ten architectures),
+  ``serve.sampler.TokenSampler`` and
   ``serve.engine.ServeEngine``, on the kernels ``cdf_scan`` (softmax
   mode) and ``sample_rows``; ``interop.params_from_jax`` and
   ``cache_from_jax`` carry JAX weights and caches across, and
   ``ServeEngine.restore`` takes a JAX engine snapshot;
-* eval and training of the dense LM: ``models.forward`` and ``loss_fn``
+* eval of every family and training of the dense LM: ``models.forward``
+  and ``loss_fn``
   (``attn_impl="flash"`` on the kernel ``flash_attention``, forward only;
   ``"einsum"`` with gradients), ``train`` (AdamW over float32 masters,
   ``make_train_step`` with microbatches and remat, ``Trainer`` with

@@ -1,12 +1,10 @@
 """Workload configurations of the port: the paper's sampling workloads
-(``paper_workloads``) and the registry of the LM architectures the port
-builds so far (the dense family).
+(``paper_workloads``) and the registry of the ten LM architectures, the
+JAX package's list in its order.
 
 Each architecture module defines ``CONFIG`` (the published widths) and
 ``REDUCED`` (the CPU smoke scale); ``get(name)`` and ``get_reduced(name)``
 take either the module name or the published name (``qwen1.5-0.5b``).
-The moe, hybrid, ssm, audio and vlm configurations come with their model
-families (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -15,6 +13,12 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 ARCHS = [
+    "jamba_1_5_large_398b",
+    "llama4_maverick_400b_a17b",
+    "kimi_k2_1t_a32b",
+    "whisper_small",
+    "internvl2_76b",
+    "xlstm_1_3b",
     "qwen1_5_0_5b",
     "stablelm_3b",
     "qwen3_4b",
@@ -22,6 +26,12 @@ ARCHS = [
 ]
 
 _ALIAS = {
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "whisper-small": "whisper_small",
+    "internvl2-76b": "internvl2_76b",
+    "xlstm-1.3b": "xlstm_1_3b",
     "qwen1.5-0.5b": "qwen1_5_0_5b",
     "stablelm-3b": "stablelm_3b",
     "qwen3-4b": "qwen3_4b",
@@ -36,8 +46,7 @@ def canonical(name: str) -> str:
 def _module(name: str):
     arch = canonical(name)
     if arch not in ARCHS:
-        raise KeyError(f"unknown or not yet ported architecture {name!r}; "
-                       f"the port has {ARCHS} (the rest: ROADMAP A8)")
+        raise KeyError(f"unknown architecture {name!r}; the registry has {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

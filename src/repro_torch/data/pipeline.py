@@ -38,9 +38,12 @@ def make_batch(cfg, step: int, global_batch: int, seq_len: int,
                mixture: MixtureSampler | None = None,
                seed: int = 0) -> dict[str, np.ndarray]:
     """Pure function of (cfg, step, seed): the restart-safety contract.
-    ``tokens`` and ``labels`` (B, S) int32 numpy arrays (the dense family
-    has no embedding frontend or encoder inputs)."""
+    ``labels`` (B, S) int32 numpy arrays, with ``tokens`` (B, S) int32, or
+    ``embeds`` (B, S, D) float32 under the embed frontend; ``frames`` (B,
+    S, D) float32 for an encoder. All drawn from one generator in the JAX
+    package's order, so the arrays are equal to its."""
     rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
+    batch: dict[str, np.ndarray] = {}
     if mixture is not None:
         corpus_ids = mixture.sample(step, global_batch)
     else:
@@ -49,4 +52,13 @@ def make_batch(cfg, step: int, global_batch: int, seq_len: int,
     for cid in np.unique(corpus_ids):
         rows = np.where(corpus_ids == cid)[0]
         toks[rows] = SyntheticCorpus(cfg.vocab, int(cid)).sample(rng, len(rows), seq_len)
-    return {"tokens": toks, "labels": toks}
+    if cfg.frontend == "embed":
+        emb = rng.normal(0, 1, (global_batch, seq_len, cfg.d_model))
+        batch["embeds"] = emb.astype(np.float32)
+    else:
+        batch["tokens"] = toks
+    if cfg.encoder_layers:
+        batch["frames"] = rng.normal(
+            0, 1, (global_batch, seq_len, cfg.d_model)).astype(np.float32)
+    batch["labels"] = toks
+    return batch

@@ -21,7 +21,7 @@ from repro_torch.core.forest import RadixForest
 from repro_torch.device import resolve, to_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layout import named_from_jax, named_to_jax
-from repro_torch.models.model import DenseLM, init_cache
+from repro_torch.models.model import LM, init_cache
 from repro_torch.pool.arena import ForestPool, Handle
 
 _FIELDS = {
@@ -57,13 +57,13 @@ def handle_from_numpy(h) -> Handle:
 
 
 def params_to_jax(params, cfg: ModelConfig | None = None) -> dict:
-    """The inverse of :func:`named_from_jax`: a :class:`DenseLM` (or a
+    """The inverse of :func:`named_from_jax`: an :class:`LM` (or a
     ``{port parameter name: tensor}`` mapping such as its gradients or AdamW
     moments, with ``cfg``) -> the JAX pytree layout with numpy float32
     leaves: per-period leaves stacked over the periods, weights ``(in,
     out)``, q/k/v ``(D, heads, hd)``, biases ``(heads, hd)``."""
     cfg = cfg or params.cfg
-    named = dict(params.named_parameters()) if isinstance(params, DenseLM) else params
+    named = dict(params.named_parameters()) if isinstance(params, LM) else params
     return named_to_jax({k: t.detach().to(torch.float32).cpu().numpy()
                          for k, t in named.items()}, cfg)
 
@@ -77,15 +77,20 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
 
 @torch.no_grad()
 def params_from_jax(params_np: dict, cfg: ModelConfig, device="cuda",
-                    param_dtype=None) -> DenseLM:
-    """A JAX ``init_params`` pytree with numpy leaves (stacked over periods:
-    ``layers.b{i}.wq`` (P, D, H, hd), ``bq`` (P, H, hd), ``wo`` (P, H, hd,
-    D), ``ln_b{i}.scale`` (P, D), ``m{i}.{wi,wg,wo}``, ``embed``,
-    ``final_norm``, and ``lm_head`` (D, V) when untied) -> the port's
-    :class:`DenseLM` on ``device``, weights transposed to ``(out, in)`` and
+                    param_dtype=None) -> LM:
+    """A JAX ``init_params`` pytree of any family with numpy leaves
+    (stacked over periods: ``layers.b{i}.wq`` (P, D, H, hd), ``bq`` (P, H,
+    hd), ``wo`` (P, H, hd, D), ``ln_b{i}.scale`` (P, D), ``m{i}.{wi,wg,wo}``
+    and the Mamba, mLSTM, sLSTM, MoE and cross-attention leaves, the
+    ``encoder`` stacked over its layers, ``embed`` unless the frontend is
+    ``"embed"``, ``final_norm``, ``enc_norm``, and ``lm_head`` (D, V) when
+    untied; see :func:`repro_torch.models.layout.leaf_map`) -> the port's
+    :class:`LM` on ``device``, weights transposed to ``(out, in)`` and
     stored in ``param_dtype`` (default the model dtype; ``torch.float32``
-    keeps the JAX float32 masters exactly), norm scales in float32."""
-    model = DenseLM(cfg, device, param_dtype)
+    keeps the JAX float32 masters exactly), the leaves JAX uses in float32
+    (norm scales, the router, the SSM and xLSTM gate constants) in
+    float32."""
+    model = LM(cfg, device, param_dtype)
     named = named_from_jax(params_np, cfg)
     for name, p in model.named_parameters():
         p.copy_(torch.from_numpy(np.array(named[name], np.float32)))  # casts to p's dtype
@@ -109,16 +114,19 @@ def opt_state_from_jax(opt_np, cfg: ModelConfig, device="cuda"):
 
 def cache_leaf_order(cache: dict):
     """``(block key, leaf name)`` pairs in the order ``jax.tree_util.
-    tree_leaves`` walks a cache: sorted block keys, then ``k``, ``len``,
-    ``v``."""
+    tree_leaves`` walks a cache: sorted block keys, then sorted leaf names
+    (``k``, ``len``, ``v``; ``conv``, ``h``; ``C``, ``n``; ``c``, ``h``,
+    ``m``, ``n``)."""
     return [(b, leaf) for b in sorted(cache) for leaf in sorted(cache[b])]
 
 
 def cache_from_jax(leaves, cfg: ModelConfig, B: int, max_seq: int, device="cuda") -> dict:
     """A decode cache from its leaves in ``tree_leaves`` order (as a JAX
     engine snapshot stores them, or :func:`cache_to_leaves`; numpy arrays,
-    or tensors such as the bfloat16 leaves ``ckpt.load_state`` returns):
-    ``k``/``v`` cast to the model dtype, ``len`` int32."""
+    or tensors such as the bfloat16 leaves ``ckpt.load_state`` returns),
+    for every block kind: each leaf cast to the dtype of the port's zero
+    cache (``k``/``v``, Mamba's ``conv`` and sLSTM's ``h`` the model dtype,
+    the recurrent states float32, ``len`` int32)."""
     cache = init_cache(cfg, B, max_seq, resolve(device))
     order = cache_leaf_order(cache)
     if len(leaves) != len(order):
@@ -135,7 +143,8 @@ def cache_from_jax(leaves, cfg: ModelConfig, B: int, max_seq: int, device="cuda"
 
 
 def cache_to_leaves(cache: dict) -> list:
-    """The cache's leaves in ``tree_leaves`` order as numpy (``k``/``v`` as
-    float32, which holds bfloat16 values exactly; ``len`` int32)."""
-    return [cache[b][leaf].cpu().to(torch.int32 if leaf == "len" else torch.float32).numpy()
-            for b, leaf in cache_leaf_order(cache)]
+    """The cache's leaves in ``tree_leaves`` order as numpy copies (float32,
+    which holds bfloat16 values exactly; ``len`` int32): ``decode_step``
+    writes the cache in place, and a snapshot must not follow it."""
+    return [cache[b][leaf].cpu().to(torch.int32 if leaf == "len" else torch.float32)
+            .numpy().copy() for b, leaf in cache_leaf_order(cache)]

@@ -11,8 +11,11 @@
 //   l = l * alpha + rowsum p,  acc = acc * alpha + p . v,  m = m_new;
 // and out = acc / max(l, 1e-30) in q's dtype. Query head h reads key head
 // h / G (GQA), and the (B, S, heads, hd) layout is read through its strides,
-// with no transpose copy. Two bodies, chosen by dtype in rt_flash_attention
-// (a dispatch by type: neither retreats to the other):
+// with no transpose copy. Head dims 32, 64 and 128 have tiles of their own;
+// hd 112 (Kimi K2) runs the hd-128 tile, whose columns past 112 read as
+// zeros (TMA's out-of-bounds fill, or masked loads) and are not stored.
+// Two bodies, chosen by dtype in rt_flash_attention (a dispatch by type:
+// neither retreats to the other):
 //
 // bfloat16: `flash_attention_bf16_wgmma`, on the tensor cores. A block of
 // 288 threads owns a 128-row query tile: two consumer warpgroups of 64 rows
@@ -290,7 +293,7 @@ __device__ __forceinline__ void fa_wgmma_pv(float (&d)[NB / 2], const uint32_t (
 // lane l: register i holds row 16w + l/4 (+8 when i & 2) and column
 // 8 * (i / 4) + 2 * (l % 4) + (i & 1). Registers 8kk..8kk+7 of S are the
 // 16 keys of step kk, exactly the register-A fragment of that step.
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(FA_WG_THREADS, 1)
 flash_attention_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
@@ -463,10 +466,10 @@ flash_attention_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int i = 0; i < NB / 2; i += 2) {
             const int row = (i & 2) ? r1 : r0;
+            const int col = nb * NB + 8 * (i >> 2) + cq;
             const float d = (i & 2) ? d1 : d0;
-            if (row < Sq)
-                *reinterpret_cast<__nv_bfloat162*>(ob + row * so.s + nb * NB + 8 * (i >> 2) +
-                                                   cq) =
+            if (row < Sq && (HDV == HD || col < HDV))  // the tile's columns past hd are padding
+                *reinterpret_cast<__nv_bfloat162*>(ob + row * so.s + col) =
                     __floats2bfloat162_rn(acc[nb][i] / d, acc[nb][i + 1] / d);
         }
 }
@@ -525,23 +528,26 @@ static int fa_make_map(CUtensorMap* map, const void* ptr, int B, int S, int head
     return r == CUDA_SUCCESS ? 0 : FA_TMA_ERROR + (int)r;
 }
 
-template <int HD>
+// HDV: the head dim of the tensors; HD >= HDV: the tile's. Where HDV < HD
+// the maps span HDV columns and TMA fills the box's columns past them with
+// zeros, which add nothing to q . k and make zero output columns, not stored.
+template <int HD, int HDV>
 static int fa_bf16_launch(const void* q, const void* k, const void* v, void* o, int B,
                           int Sq, int Sk, int H, int KV, FaStrides sq, FaStrides sk,
                           FaStrides sv, FaStrides so, int causal, float scale,
                           cudaStream_t stream) {
     using T = FaTile<HD>;
     CUtensorMap mq, mk, mv;
-    int err = fa_make_map(&mq, q, B, Sq, H, HD, sq, FA_TQ, T::SWB);
-    if (!err) err = fa_make_map(&mk, k, B, Sk, KV, HD, sk, FA_TK, T::SWB);
-    if (!err) err = fa_make_map(&mv, v, B, Sk, KV, HD, sv, FA_TK, T::SWB);
+    int err = fa_make_map(&mq, q, B, Sq, H, HDV, sq, FA_TQ, T::SWB);
+    if (!err) err = fa_make_map(&mk, k, B, Sk, KV, HDV, sk, FA_TK, T::SWB);
+    if (!err) err = fa_make_map(&mv, v, B, Sk, KV, HDV, sv, FA_TK, T::SWB);
     if (err) return err;
-    cudaError_t e = cudaFuncSetAttribute(flash_attention_bf16_wgmma<HD>,
+    cudaError_t e = cudaFuncSetAttribute(flash_attention_bf16_wgmma<HD, HDV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (e != cudaSuccess) return (int)e;
     const int nq = (Sq + FA_TQ - 1) / FA_TQ;
     dim3 grid(H, B, nq);
-    flash_attention_bf16_wgmma<HD><<<grid, FA_WG_THREADS, T::SMEM, stream>>>(
+    flash_attention_bf16_wgmma<HD, HDV><<<grid, FA_WG_THREADS, T::SMEM, stream>>>(
         mq, mk, mv, (__nv_bfloat16*)o, so, Sq, Sk, H / KV, nq, causal, scale);
     return (int)cudaGetLastError();
 }
@@ -605,9 +611,10 @@ __device__ __forceinline__ void fa_put4(unsigned char* hi, unsigned char* lo, ui
 }
 
 // Rows r0 .. r0 + ROWS - 1 of a (S, hd) slice at `src` (row r at src + r *
-// rs) into registers, 16 bytes a chunk; rows at or past `rows` read as 0.
+// rs) into registers, 16 bytes a chunk; rows at or past `rows`, and columns
+// at or past HDV (a tile wider than the tensor's head dim), read as 0.
 // `vec`: 16-byte loads (aligned base and strides), else four scalar loads.
-template <int HD, int ROWS>
+template <int HD, int HDV, int ROWS>
 __device__ __forceinline__ void fa_f32_load(float4 (&x)[ROWS * HD / 4 / FA_F32_THREADS],
                                             const float* __restrict__ src, long long rs,
                                             int r0, int rows, int vec) {
@@ -616,7 +623,7 @@ __device__ __forceinline__ void fa_f32_load(float4 (&x)[ROWS * HD / 4 / FA_F32_T
     for (int i = 0; i < ROWS * C / FA_F32_THREADS; ++i) {
         const int c = (int)threadIdx.x + i * FA_F32_THREADS, r = r0 + c / C;
         const float* p = src + (long long)r * rs + (c % C) * 4;
-        if (r >= rows) x[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r >= rows || (HDV < HD && (c % C) * 4 >= HDV)) x[i] = make_float4(0.f, 0.f, 0.f, 0.f);
         else if (vec) x[i] = __ldg(reinterpret_cast<const float4*>(p));
         else x[i] = make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
     }
@@ -642,7 +649,7 @@ __device__ __forceinline__ void fa_f32_store(const float4 (&x)[ROWS * HD / 4 / F
 // group in row n of V^T. Position p of a group holds key 2p (p < 4) or
 // 2(p - 4) + 1: the k order that makes S's accumulator registers P's A
 // fragment (below).
-template <int HD, int BK>
+template <int HD, int HDV, int BK>
 __device__ __forceinline__ void fa_f32_load_vt(float4 (&x)[BK * HD / 4 / FA_F32_THREADS],
                                                const float* __restrict__ vb, long long rs,
                                                int k0, int Sk) {
@@ -650,10 +657,11 @@ __device__ __forceinline__ void fa_f32_load_vt(float4 (&x)[BK * HD / 4 / FA_F32_
     for (int i = 0; i < BK * HD / 4 / FA_F32_THREADS; ++i) {
         const int c = (int)threadIdx.x + i * FA_F32_THREADS, n = c % HD, pc = c / HD;
         const int j = k0 + 8 * (pc >> 1) + (pc & 1);
+        const bool col = HDV == HD || n < HDV;
         float e[4];
 #pragma unroll
         for (int m = 0; m < 4; ++m)
-            e[m] = j + 2 * m < Sk ? __ldg(vb + (long long)(j + 2 * m) * rs + n) : 0.f;
+            e[m] = col && j + 2 * m < Sk ? __ldg(vb + (long long)(j + 2 * m) * rs + n) : 0.f;
         x[i] = make_float4(e[0], e[1], e[2], e[3]);
     }
 }
@@ -834,7 +842,7 @@ __device__ __forceinline__ void fa_wgmma_tf32_rs(float (&d)[N / 2], const uint32
 // of k-step j is (g, k t), (g + 8, k t), (g, k t + 4), (g + 8, k t + 4), so
 // with k t <-> key 2t and k t + 4 <-> key 2t + 1 (V^T stored in that order)
 // P's fragment is registers 4j, 4j + 2, 4j + 1, 4j + 3.
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(FA_F32_THREADS, 1)
 flash_attention_f32_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
@@ -872,7 +880,7 @@ flash_attention_f32_tf32x3(const float* __restrict__ q, const float* __restrict_
 
     {   // Q times the scale (as the reference scales q), split once
         float4 x[FA_F32_ROWS * HD / 4 / FA_F32_THREADS];
-        fa_f32_load<HD, FA_F32_ROWS>(x, q + b * sq.b + h * sq.h, sq.s, q0, Sq, vec);
+        fa_f32_load<HD, HDV, FA_F32_ROWS>(x, q + b * sq.b + h * sq.h, sq.s, q0, Sq, vec);
         fa_f32_store<HD, FA_F32_ROWS>(x, scale, Qh, Ql);
     }
 
@@ -885,8 +893,8 @@ flash_attention_f32_tf32x3(const float* __restrict__ q, const float* __restrict_
     // land in registers while they run.
     float4 xk[BK * HD / 4 / FA_F32_THREADS], xv[BK * HD / 4 / FA_F32_THREADS];
     if (rank < nt) {
-        fa_f32_load<HD, BK>(xk, kb, sk.s, rank * BK, Sk, vec);
-        fa_f32_load_vt<HD, BK>(xv, vb, sv.s, rank * BK, Sk);
+        fa_f32_load<HD, HDV, BK>(xk, kb, sk.s, rank * BK, Sk, vec);
+        fa_f32_load_vt<HD, HDV, BK>(xv, vb, sv.s, rank * BK, Sk);
     }
     for (int it = rank; it < nt; it += split) {
         const int k0 = it * BK;
@@ -896,8 +904,8 @@ flash_attention_f32_tf32x3(const float* __restrict__ q, const float* __restrict_
         fa_fence_proxy_async();
         __syncthreads();
         if (it + split < nt) {
-            fa_f32_load<HD, BK>(xk, kb, sk.s, k0 + split * BK, Sk, vec);
-            fa_f32_load_vt<HD, BK>(xv, vb, sv.s, k0 + split * BK, Sk);
+            fa_f32_load<HD, HDV, BK>(xk, kb, sk.s, k0 + split * BK, Sk, vec);
+            fa_f32_load_vt<HD, HDV, BK>(xv, vb, sv.s, k0 + split * BK, Sk);
         }
         if (causal && k0 > q0 + 64 * wg + 63) continue;  // after every row of this warpgroup
 
@@ -1038,6 +1046,7 @@ flash_attention_f32_tf32x3(const float* __restrict__ q, const float* __restrict_
     float* ob = o + b * so.b + h * so.h + 2 * t4;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
+        if (HDV < HD && 8 * n + 2 * t4 >= HDV) continue;  // padding columns of the tile
         if (r0 < Sq)
             *reinterpret_cast<float2*>(ob + r0 * so.s + 8 * n) =
                 make_float2(acc[4 * n] / d0, acc[4 * n + 1] / d0);
@@ -1066,17 +1075,17 @@ static bool fa_vec_ready(const void* p, FaStrides s) {
            s.h % 4 == 0;
 }
 
-template <int HD>
+template <int HD, int HDV>
 static int fa_f32_launch(const void* q, const void* k, const void* v, void* o, int B,
                          int Sq, int Sk, int H, int KV, FaStrides sq, FaStrides sk,
                          FaStrides sv, FaStrides so, int causal, float scale,
                          cudaStream_t stream) {
     using T = FaF32<HD>;
-    cudaError_t e = cudaFuncSetAttribute(flash_attention_f32_tf32x3<HD>,
+    cudaError_t e = cudaFuncSetAttribute(flash_attention_f32_tf32x3<HD, HDV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (e != cudaSuccess) return (int)e;
     int per_sm = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_attention_f32_tf32x3<HD>,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_attention_f32_tf32x3<HD, HDV>,
                                                       FA_F32_THREADS, T::SMEM);
     if (e != cudaSuccess) return (int)e;
     const int nq = (Sq + FA_F32_ROWS - 1) / FA_F32_ROWS;
@@ -1095,7 +1104,7 @@ static int fa_f32_launch(const void* q, const void* k, const void* v, void* o, i
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    e = cudaLaunchKernelEx(&cfg, flash_attention_f32_tf32x3<HD>, (const float*)q,
+    e = cudaLaunchKernelEx(&cfg, flash_attention_f32_tf32x3<HD, HDV>, (const float*)q,
                            (const float*)k, (const float*)v, (float*)o, Sq, Sk, H / KV, nq, sq,
                            sk, sv, so, causal, scale, vec);
     return (int)(e != cudaSuccess ? e : cudaGetLastError());
@@ -1111,16 +1120,19 @@ RT_API int rt_flash_attention(const void* q, const void* k, const void* v, void*
     const FaStrides sq{sqb, sqs, sqh}, sk{skb, sks, skh}, sv{svb, svs, svh},
         so{sob, sos, soh};
     cudaStream_t st = (cudaStream_t)stream;
-#define FA_CASE(launch, HD)                                                          \
-    return launch<HD>(q, k, v, o, B, Sq, Sk, H, KV, sq, sk, sv, so, causal, scale, st)
+#define FA_CASE(launch, HD, HDV)                                                     \
+    return launch<HD, HDV>(q, k, v, o, B, Sq, Sk, H, KV, sq, sk, sv, so, causal, scale, st)
+    // hd 112 (Kimi K2) runs the hd-128 tile over zero-filled columns
     if (bf16) {
-        if (hd == 32) FA_CASE(fa_bf16_launch, 32);
-        if (hd == 64) FA_CASE(fa_bf16_launch, 64);
-        if (hd == 128) FA_CASE(fa_bf16_launch, 128);
+        if (hd == 32) FA_CASE(fa_bf16_launch, 32, 32);
+        if (hd == 64) FA_CASE(fa_bf16_launch, 64, 64);
+        if (hd == 112) FA_CASE(fa_bf16_launch, 128, 112);
+        if (hd == 128) FA_CASE(fa_bf16_launch, 128, 128);
     } else {
-        if (hd == 32) FA_CASE(fa_f32_launch, 32);
-        if (hd == 64) FA_CASE(fa_f32_launch, 64);
-        if (hd == 128) FA_CASE(fa_f32_launch, 128);
+        if (hd == 32) FA_CASE(fa_f32_launch, 32, 32);
+        if (hd == 64) FA_CASE(fa_f32_launch, 64, 64);
+        if (hd == 112) FA_CASE(fa_f32_launch, 128, 112);
+        if (hd == 128) FA_CASE(fa_f32_launch, 128, 128);
     }
 #undef FA_CASE
     return (int)cudaErrorInvalidValue;

@@ -30,7 +30,9 @@ import torch
 from . import _build
 from .ref import ref_flash_attention
 
-HEAD_DIMS = (32, 64, 128)  # the kernel's template instances
+# head dims the kernel takes: 32, 64 and 128 have tiles of their own, 112
+# runs the 128 tile over zero-filled columns
+HEAD_DIMS = (32, 64, 112, 128)
 
 
 def _strides(t: torch.Tensor) -> tuple[int, int, int]:
@@ -64,7 +66,8 @@ def kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> list[tor
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q (B, Sq, H, hd), k/v (B, Sk, KV, hd), all float32 or all bfloat16,
-    ``H % KV == 0``, ``hd`` in (32, 64, 128) -> (B, Sq, H, hd) in q's dtype.
+    ``H % KV == 0``, ``hd`` in ``HEAD_DIMS`` (32, 64, 112, 128) -> (B, Sq,
+    H, hd) in q's dtype; the scale is ``1/sqrt(hd)``.
     Causal masking is top-left aligned: query ``i`` sees keys ``0..i``.
     On the card, a bf16 input that TMA cannot read in place (misaligned
     base or strides) is copied first (:func:`kernel_inputs`)."""

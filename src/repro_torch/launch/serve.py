@@ -4,7 +4,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b --device cpu
 
 Serves random prompts through a reduced-width, float32 model with seeded
-random weights on ``--device`` (default ``cuda``).
+random weights on ``--device`` (default ``cuda``). ``--arch`` takes any of
+the ten architectures; the engine prefills token prompts, so for the
+``embed`` frontend (internvl2-76b) and the encoder-decoder (whisper-small)
+the launcher drives the model's ``prefill`` and ``decode_step`` itself,
+with synthetic embeddings and frames as ``data.make_batch`` draws them.
 """
 from __future__ import annotations
 
@@ -13,7 +17,8 @@ import argparse
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="an architecture of repro_torch.configs.ARCHS (module or published name)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
@@ -35,6 +40,13 @@ def main() -> None:
     cfg = dataclasses.replace(C.get_reduced(args.arch), dtype="float32")
     device = resolve(args.device)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    if cfg.frontend == "embed" or cfg.encoder_layers:
+        sampler = TokenSampler(mode=args.mode, n_slots=args.requests, device=device)
+        steps = serve_model_level(params, cfg, sampler, args.requests, args.max_new)
+        print(f"served {args.requests}/{args.requests} requests, "
+              f"{args.requests * args.max_new} tokens, {steps} batched decode steps "
+              f"(model-level prefill and decode_step), sampler={args.mode}, device={device}")
+        return
     eng = ServeEngine(
         params, cfg, n_slots=args.slots, max_seq=256,
         sampler=TokenSampler(mode=args.mode, n_slots=args.slots, device=device),
@@ -53,6 +65,30 @@ def main() -> None:
     print(f"served {done}/{len(reqs)} requests, {toks} tokens, "
           f"{eng.steps} batched decode steps, sampler={args.mode}, device={device}")
 
+
+def serve_model_level(params, cfg, sampler, n: int, max_new: int) -> int:
+    """The ``n`` requests as one batch through ``prefill`` and
+    ``decode_step``: an 8-token prompt of ``make_batch``'s synthetic inputs
+    (embeddings under the embed frontend, frames for an encoder), then
+    ``max_new - 1`` decode steps; under the embed frontend each step feeds
+    fresh synthetic embeddings (the model has no token table). Returns the
+    decode steps taken."""
+    import numpy as np
+
+    from repro_torch.data import make_batch
+    from repro_torch.models import decode_step, prefill
+
+    batch = make_batch(cfg, 0, n, 8)
+    slots = np.arange(n)
+    logits, cache, enc_out = prefill(params, cfg, batch, max_seq=8 + max_new)
+    tok = sampler.sample(logits, slots)
+    rng = np.random.default_rng(1)
+    for step in range(max_new - 1):
+        x = (rng.normal(0, 1, (n, 1, cfg.d_model)).astype(np.float32)
+             if cfg.frontend == "embed" else tok)
+        logits, cache = decode_step(params, cfg, cache, x, np.full(n, 8 + step), enc_out)
+        tok = sampler.sample(logits, slots)
+    return max_new - 1
 
 if __name__ == "__main__":
     main()

@@ -1,10 +1,12 @@
-"""The port's LM stack, dense family: configuration, layers, the eval and
-training entry points ``forward`` and ``loss_fn``, and the serving entry
-points ``prefill`` and ``decode_step``."""
+"""The port's LM stack, every family of the JAX package: configuration,
+layers, the MoE, Mamba and xLSTM blocks, the eval and training entry points
+``forward`` and ``loss_fn``, and the serving entry points ``prefill`` and
+``decode_step``."""
 from .config import ModelConfig, reduced
 from .model import (
-    DenseLM,
+    LM,
     decode_step,
+    encode,
     forward,
     init_cache,
     init_params,
@@ -12,5 +14,5 @@ from .model import (
     prefill,
 )
 
-__all__ = ["DenseLM", "ModelConfig", "decode_step", "forward", "init_cache",
+__all__ = ["LM", "ModelConfig", "decode_step", "encode", "forward", "init_cache",
            "init_params", "loss_fn", "prefill", "reduced"]

@@ -3,10 +3,8 @@
 
 One decoder-centric description: a repeating *super-block* of per-layer
 block types (attention / mamba / mlstm / slstm) and MLP types (dense / moe /
-none), plus an optional encoder stack and modality frontends. The port
-builds the dense family so far (``repro_torch.models.model``); the other
-kinds are described here so that every configuration of the registry can be
-read, and the model raises on them.
+none), plus an optional encoder stack and modality frontends. The port's
+``repro_torch.models.model.LM`` builds every kind described here.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Transformer layers of the dense LM: RMSNorm, RoPE, GQA attention with a
-per-row KV cache, SwiGLU MLP.
+"""Transformer layers of the LM: RMSNorm, RoPE, GQA attention with a
+per-row KV cache, cross-attention over an encoder's output, SwiGLU MLP.
 
 Each layer keeps the arithmetic of the JAX package's ``models/layers.py``:
 RMSNorm in float32 and cast back, half-split (not interleaved) RoPE in
@@ -41,6 +41,13 @@ def _weight(*shape, dtype, device) -> nn.Parameter:
 
 def _zeros(n: int, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.zeros(n, dtype=dtype, device=device), requires_grad=False)
+
+
+def _f32(t: torch.Tensor) -> nn.Parameter:
+    """A float32 parameter holding ``t``: the leaves the JAX package uses in
+    float32 whatever the model dtype (norm scales, the router, the SSM and
+    xLSTM gate constants)."""
+    return nn.Parameter(t.to(torch.float32), requires_grad=False)
 
 
 class RMSNorm(nn.Module):
@@ -167,6 +174,31 @@ class Attention(nn.Module):
         cv[rows, pos] = v[:, 0].to(cv.dtype)
         keep = torch.arange(ck.shape[1], device=x.device)[None] <= pos[:, None]
         return self.out(_sdpa(q, ck, cv, keep[:, None, None, None, :]))
+
+
+def encoder_kv(p: Attention, cfg: ModelConfig, enc_out: torch.Tensor):
+    """Cross-attention keys and values of an encoder output (B, S_enc, D):
+    ``k``/``v`` (B, S_enc, KV, hd), no bias and no RoPE, ``k`` qk-normed
+    where the config says so (JAX ``layers.encoder_kv``)."""
+    B, S, _ = enc_out.shape
+    dt = enc_out.dtype
+    k = F.linear(enc_out, p.wk.to(dt)).view(B, S, cfg.n_kv_heads, cfg.hd)
+    v = F.linear(enc_out, p.wv.to(dt)).view(B, S, cfg.n_kv_heads, cfg.hd)
+    if cfg.qk_norm:
+        k = p.k_norm(k)
+    return k, v
+
+
+def cross_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, enc_kv) -> torch.Tensor:
+    """Non-causal attention of x (B, S, D) over ``encoder_kv``'s keys and
+    values: q without bias or RoPE (qk-normed where the config says so),
+    the materialized ``_sdpa`` as JAX ``layers.cross_attention``."""
+    B, S, _ = x.shape
+    q = F.linear(x, p.wq.to(x.dtype)).view(B, S, cfg.n_heads, cfg.hd)
+    if cfg.qk_norm:
+        q = p.q_norm(q)
+    k, v = enc_kv
+    return p.out(_sdpa(q, k.to(x.dtype), v.to(x.dtype)))
 
 
 class MLP(nn.Module):

@@ -1,22 +1,33 @@
-"""The dense LM of the port: parameters, decode cache, ``forward`` and
-``loss_fn`` (eval and training), ``prefill`` and ``decode_step`` (serving).
+"""The LM of the port: parameters, decode cache, ``forward`` and ``loss_fn``
+(eval and training), ``prefill`` and ``decode_step`` (serving), for every
+family of the JAX package's ``models/model.py``.
 
-Mirrors the JAX package's ``models/model.py`` for the dense family
-(attention blocks, dense SwiGLU MLPs, token frontend, no encoder).
-Parameters live in a :class:`DenseLM` module, one :class:`Period` per
-super-block period, in the model dtype (serving) or as float32 masters
-(``param_dtype=torch.float32``, training; each layer casts at use). The
-decode cache keeps the JAX layout: ``cache[f"b{i}"]`` holds ``k``/``v``
-``(P, B, S, KV, hd)`` and ``len`` ``(P,)`` int32. ``decode_step`` writes the
-new keys and values into the cache in place (the JAX function returns a new
-cache; the port saves the copy of the whole cache per step) and returns the
-same dict.
+A period (super-block) holds, for each block ``i`` of ``cfg.block_pattern``:
+``ln_b{i}`` and ``b{i}`` (attention, Mamba, mLSTM or sLSTM), then, for an
+attention block of an encoder-decoder config, ``ln_x{i}`` and ``x{i}``
+(cross-attention over the encoder output), then ``ln_m{i}`` and ``m{i}``
+(a dense SwiGLU MLP or an MoE) unless the MLP kind is ``"none"``; they run
+in that order, as JAX's ``_period_forward``. The ``embed`` frontend reads
+``batch["embeds"]`` (B, S, D) and has no ``embed`` table; an encoder
+(Whisper) runs non-causal attention blocks over ``batch["frames"]``.
+Parameters live in an :class:`LM` module in the model dtype (serving) or
+as float32 masters (``param_dtype=torch.float32``); the leaves JAX uses in
+float32 whatever the model dtype (norm scales, the router, the SSM and
+xLSTM gate constants) stay float32.
+
+The decode cache keeps the JAX layout, stacked over the periods: for an
+attention block ``k``/``v`` (P, B, S, KV, hd) and ``len`` (P,) int32; for
+Mamba ``conv`` (P, B, K - 1, DI) and ``h`` (P, B, DI, N); for mLSTM ``C``
+(P, B, H, hd, hd) and ``n``; for sLSTM ``h``, ``c``, ``n``, ``m`` (P, B, H,
+hd). ``decode_step`` writes the new state into the cache in place (the JAX
+function returns a new cache; the port saves the copy of the whole cache
+per step) and returns the same dict. It recomputes the encoder's keys and
+values every step, as JAX does.
 
 ``forward`` runs ``cfg.attn_impl``: ``"einsum"`` (materialized scores) or
 ``"flash"`` (kernel B10, forward only: with gradients required it raises,
-as the reference cannot differentiate its kernel either). Other block or
-MLP kinds, frontends, encoders and cross-attention raise
-``NotImplementedError`` (ROADMAP A8).
+as the reference cannot differentiate its kernel either). Prefill, decode
+and cross-attention always use the materialized scores, as in JAX.
 """
 from __future__ import annotations
 
@@ -34,58 +45,123 @@ from torch.utils.checkpoint import (
 
 from repro_torch.device import resolve, to_device
 
+from . import moe as M
+from . import ssm as S
+from . import xlstm as X
 from .config import ModelConfig
-from .layers import MLP, Attention, RMSNorm, _dtype, _sdpa, causal_keep
+from .layers import MLP, Attention, RMSNorm, _dtype, _sdpa, causal_keep, cross_attention, encoder_kv
+
+BLOCKS = {"attn": Attention, "mamba": S.Mamba, "mlstm": X.MLSTM, "slstm": X.SLSTM}
+MLPS = ("dense", "moe", "none")
+# the recurrent blocks' full-sequence, prefill (output and state) and
+# one-step forms
+_SEQUENCE = {"mamba": S.mamba, "mlstm": X.mlstm, "slstm": X.slstm}
+_PREFILL = {"mamba": S.mamba_prefill, "mlstm": X.mlstm_prefill, "slstm": X.slstm_prefill}
+_DECODE = {"mamba": S.mamba_decode, "mlstm": X.mlstm_decode, "slstm": X.slstm_decode}
+
+# Largest float32 temporary of one init draw (elements): a weight is drawn
+# in slices along its first axis, so a (384, 7168, 2048) expert stack needs
+# ~1 GB beside itself, not 22.5 GB.
+INIT_SLICE_ELEMS = 1 << 28
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not build yet."""
-    kinds = set(cfg.block_pattern) - {"attn"}
-    mlps = set(cfg.mlp_pattern) - {"dense"}
-    if kinds or mlps or cfg.frontend != "none" or cfg.encoder_layers or cfg.cross_attention:
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense family (attention blocks, dense MLPs, "
-            f"token frontend, no encoder) is ported; block kinds {sorted(kinds)}, "
-            f"mlp kinds {sorted(mlps)}, frontend {cfg.frontend!r}, encoder_layers "
-            f"{cfg.encoder_layers} wait for ROADMAP A8")
+    """Raise ``ValueError`` for a block or MLP kind, or an ``attn_impl``,
+    the model does not know (JAX's ``_init_block`` raises for a block kind)."""
+    for kind in cfg.block_pattern:
+        if kind not in BLOCKS:
+            raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
+    for kind in cfg.mlp_pattern:
+        if kind not in MLPS:
+            raise ValueError(f"{cfg.name}: unknown mlp kind {kind!r}")
     if cfg.attn_impl not in ("einsum", "flash"):
         raise ValueError(f"{cfg.name}: unknown attn_impl {cfg.attn_impl!r}")
 
 
+def _mlp_kind(cfg: ModelConfig, i: int) -> str:
+    return cfg.mlp_pattern[i % len(cfg.mlp_pattern)]
+
+
+def _cross(cfg: ModelConfig, kind: str) -> bool:
+    return cfg.cross_attention and kind == "attn"
+
+
 class Period(nn.Module):
-    """One super-block period: ``ln_b{i}``, ``b{i}`` (attention), ``ln_m{i}``,
-    ``m{i}`` (MLP) for each block ``i`` of the pattern."""
+    """One super-block period (see the module docstring for its names)."""
 
     def __init__(self, cfg: ModelConfig, device=None, param_dtype=None):
         super().__init__()
-        self.n = len(cfg.block_pattern)
+        self.kinds = tuple(cfg.block_pattern)
         dt = param_dtype or _dtype(cfg)
-        for i in range(self.n):
-            self.add_module(f"ln_b{i}", RMSNorm(cfg.d_model, cfg.norm_eps, device))
-            self.add_module(f"b{i}", Attention(cfg, device, dt))
-            self.add_module(f"ln_m{i}", RMSNorm(cfg.d_model, cfg.norm_eps, device))
-            self.add_module(f"m{i}", MLP(cfg.d_model, cfg.d_ff, dt, device))
+        D = cfg.d_model
+        for i, kind in enumerate(self.kinds):
+            self.add_module(f"ln_b{i}", RMSNorm(D, cfg.norm_eps, device))
+            self.add_module(f"b{i}", BLOCKS[kind](cfg, device, dt))
+            if _cross(cfg, kind):
+                self.add_module(f"ln_x{i}", RMSNorm(D, cfg.norm_eps, device))
+                self.add_module(f"x{i}", Attention(cfg, device, dt))
+            mk = _mlp_kind(cfg, i)
+            if mk != "none":
+                self.add_module(f"ln_m{i}", RMSNorm(D, cfg.norm_eps, device))
+                self.add_module(f"m{i}", MLP(D, cfg.d_ff, dt, device) if mk == "dense"
+                                else M.MoE(cfg, device, dt))
 
-    def block(self, i: int):
-        return (getattr(self, f"ln_b{i}"), getattr(self, f"b{i}"),
-                getattr(self, f"ln_m{i}"), getattr(self, f"m{i}"))
+    def sub(self, name: str, i: int):
+        return getattr(self, f"{name}{i}")
 
-    def forward(self, x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    def tail(self, i: int, x: torch.Tensor, cfg: ModelConfig, enc_out):
+        """After block ``i``: the cross-attention (an attention block of an
+        encoder-decoder), then the MLP. Returns (x, the MoE aux loss or
+        None)."""
+        if _cross(cfg, self.kinds[i]):
+            xa = self.sub("x", i)
+            x = x + cross_attention(xa, cfg, self.sub("ln_x", i)(x),
+                                    encoder_kv(xa, cfg, enc_out))
+        mk = _mlp_kind(cfg, i)
+        if mk == "dense":
+            return x + self.sub("m", i)(self.sub("ln_m", i)(x)), None
+        if mk == "moe":
+            y, aux = M.moe(self.sub("m", i), cfg, self.sub("ln_m", i)(x))
+            return x + y, aux
+        return x, None
+
+    def forward(self, x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig, enc_out=None):
         """The period over the full sequence (JAX ``_period_forward``);
-        ``cfg`` is the caller's, which picks causality and ``attn_impl``."""
-        for i in range(self.n):
-            ln_b, attn, ln_m, mlp = self.block(i)
-            x = x + attn(ln_b(x), pos, causal=cfg.causal, attn_impl=cfg.attn_impl)
-            x = x + mlp(ln_m(x))
-        return x
+        ``cfg`` is the caller's, which picks causality and ``attn_impl``.
+        Returns (x, the period's summed MoE aux loss, float32)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, kind in enumerate(self.kinds):
+            b, h = self.sub("b", i), self.sub("ln_b", i)(x)
+            if kind == "attn":
+                y = b(h, pos, causal=cfg.causal, attn_impl=cfg.attn_impl)
+            else:
+                y = _SEQUENCE[kind](b, cfg, h)
+            x, a = self.tail(i, x + y, cfg, enc_out)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
 
-class DenseLM(nn.Module):
-    """Parameters of a dense LM: ``embed`` (V, D), ``layers`` (one
-    :class:`Period` per period), ``final_norm``, and ``lm_head`` (V, D)
-    unless the embeddings are tied. Projections, biases and embeddings are
-    stored in ``param_dtype`` (default ``cfg.dtype``); norm scales in
-    float32."""
+class EncoderLayer(nn.Module):
+    """One encoder layer: ``ln_a``, ``attn`` (non-causal self-attention),
+    ``ln_m``, ``mlp`` (dense SwiGLU)."""
+
+    def __init__(self, cfg: ModelConfig, device=None, param_dtype=None):
+        super().__init__()
+        dt = param_dtype or _dtype(cfg)
+        self.attn = Attention(cfg, device, dt)
+        self.ln_a = RMSNorm(cfg.d_model, cfg.norm_eps, device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
+        self.ln_m = RMSNorm(cfg.d_model, cfg.norm_eps, device)
+
+
+class LM(nn.Module):
+    """Parameters of an LM of any family: ``embed`` (V, D) unless the
+    frontend is ``"embed"``, ``layers`` (one :class:`Period` per period),
+    ``encoder`` (one :class:`EncoderLayer` per encoder layer) and
+    ``enc_norm`` when the config has an encoder, ``final_norm``, and
+    ``lm_head`` (V, D) unless the embeddings are tied. Projections and
+    embeddings are stored in ``param_dtype`` (default ``cfg.dtype``)."""
 
     def __init__(self, cfg: ModelConfig, device="cuda", param_dtype=None):
         super().__init__()
@@ -93,9 +169,14 @@ class DenseLM(nn.Module):
         dev = resolve(device)
         dt = param_dtype or _dtype(cfg)
         self.cfg = cfg
-        self.embed = nn.Parameter(torch.empty(cfg.vocab, cfg.d_model, dtype=dt, device=dev),
-                                  requires_grad=False)
+        if cfg.frontend != "embed":
+            self.embed = nn.Parameter(torch.empty(cfg.vocab, cfg.d_model, dtype=dt, device=dev),
+                                      requires_grad=False)
         self.layers = nn.ModuleList(Period(cfg, dev, dt) for _ in range(cfg.n_periods))
+        if cfg.encoder_layers:
+            self.encoder = nn.ModuleList(EncoderLayer(cfg, dev, dt)
+                                         for _ in range(cfg.encoder_layers))
+            self.enc_norm = RMSNorm(cfg.d_model, cfg.norm_eps, dev)
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, dev)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(
@@ -104,72 +185,140 @@ class DenseLM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        return self.final_norm.scale.device
 
 
-def _trunc_normal_(p: torch.Tensor, scale: float, gen: torch.Generator) -> None:
-    """``truncated_normal(-2, 2) * scale`` drawn in float32, cast to p's dtype."""
-    w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
-    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    p.copy_(w * scale)
+def _trunc_normal_(p: torch.Tensor, scale: float, gen: torch.Generator,
+                   slice_elems: int = INIT_SLICE_ELEMS) -> None:
+    """``truncated_normal(-2, 2) * scale`` drawn in float32 and cast to p's
+    dtype, in slices along the first axis of at most ``slice_elems``
+    elements (at least one row), so no temporary holds the whole tensor in
+    float32. The draws follow one another from ``gen``."""
+    rows = max(1, slice_elems // max(1, p[0].numel())) if p.dim() else 1
+    flat = p.view(1, *p.shape) if p.dim() == 0 else p
+    for r in range(0, flat.shape[0], rows):
+        part = flat[r:r + rows]
+        w = torch.empty(part.shape, dtype=torch.float32, device=p.device)
+        nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        part.copy_(w * scale)
+
+
+def _init_attention(attn: Attention, cfg: ModelConfig, normal_) -> None:
+    for w in (attn.wq, attn.wk, attn.wv):
+        normal_(w, 1.0 / math.sqrt(cfg.d_model))
+    normal_(attn.wo, 1.0 / math.sqrt(cfg.n_heads))
+
+
+def _init_mlp(mlp: MLP, d: int, ff: int, normal_) -> None:
+    normal_(mlp.wi, 1.0 / math.sqrt(d))
+    normal_(mlp.wg, 1.0 / math.sqrt(d))
+    normal_(mlp.wo, 1.0 / math.sqrt(ff))
 
 
 @torch.no_grad()
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
-                device="cuda", param_dtype=None) -> DenseLM:
-    """A :class:`DenseLM` on ``device`` with the JAX package's init
-    distributions: truncated normal (+-2 sd) scaled by ``1/sqrt(fan)``, where
-    ``fan`` is the first axis of the JAX weight shape (``D`` for q/k/v and
-    the MLP inputs, ``H`` for the attention output, ``ff`` for the MLP
-    output), ``0.02`` for the embeddings and the head; zero biases, unit
-    norm scales. ``generator`` (on ``device``; default seed 0) makes it
-    reproducible; the draws differ from JAX's PRNG (the tests carry JAX
-    parameters across with ``interop.params_from_jax``). ``param_dtype``
-    as for :class:`DenseLM`."""
-    model = DenseLM(cfg, device, param_dtype)
+                device="cuda", param_dtype=None) -> LM:
+    """An :class:`LM` on ``device`` with the JAX package's init
+    distributions: truncated normal (+-2 sd) scaled by ``1/sqrt(fan)``,
+    where ``fan`` is the first axis of the JAX weight shape (``D`` for
+    q/k/v, the MLP inputs and the Mamba input projection, ``H`` for the
+    attention output, ``ff`` for the MLP outputs, ``DI`` inside the SSM and
+    mLSTM blocks, ``E`` for the expert stacks), ``0.02`` for the
+    embeddings, the head, the
+    router and the mLSTM gates, ``0.5`` for the Mamba conv and ``0.3 /
+    sqrt(hd)`` for the sLSTM recurrence; zero biases, unit norm scales, and
+    the SSM and xLSTM gate constants as JAX sets them. ``generator`` (on
+    ``device``; default seed 0) makes it reproducible; the draws differ
+    from JAX's PRNG (the tests carry JAX parameters across with
+    ``interop.params_from_jax``). ``param_dtype`` as for :class:`LM`."""
+    model = LM(cfg, device, param_dtype)
     gen = generator or torch.Generator(device=model.device).manual_seed(0)
-    D, H, ff = cfg.d_model, cfg.n_heads, cfg.d_ff
-    _trunc_normal_(model.embed, 0.02, gen)
+    normal_ = functools.partial(_trunc_normal_, gen=gen)
+    D = cfg.d_model
+    if cfg.frontend != "embed":
+        normal_(model.embed, 0.02)
     for period in model.layers:
-        for i in range(period.n):
-            _ln, attn, _lm, mlp = period.block(i)
-            for w in (attn.wq, attn.wk, attn.wv):
-                _trunc_normal_(w, 1.0 / math.sqrt(D), gen)
-            _trunc_normal_(attn.wo, 1.0 / math.sqrt(H), gen)
-            _trunc_normal_(mlp.wi, 1.0 / math.sqrt(D), gen)
-            _trunc_normal_(mlp.wg, 1.0 / math.sqrt(D), gen)
-            _trunc_normal_(mlp.wo, 1.0 / math.sqrt(ff), gen)
+        for i, kind in enumerate(period.kinds):
+            b = period.sub("b", i)
+            if kind == "attn":
+                _init_attention(b, cfg, normal_)
+            elif kind == "mamba":
+                S.init_mamba_(b, cfg, normal_, gen)
+            elif kind == "mlstm":
+                X.init_mlstm_(b, cfg, normal_)
+            else:
+                X.init_slstm_(b, cfg, normal_)
+            if _cross(cfg, kind):
+                _init_attention(period.sub("x", i), cfg, normal_)
+            mk = _mlp_kind(cfg, i)
+            if mk == "dense":
+                _init_mlp(period.sub("m", i), D, cfg.d_ff, normal_)
+            elif mk == "moe":
+                m, Fe = period.sub("m", i), cfg.expert_ff
+                normal_(m.router, 0.02)
+                normal_(m.wi, 1.0 / math.sqrt(m.wi.shape[0]))
+                normal_(m.wg, 1.0 / math.sqrt(m.wg.shape[0]))
+                normal_(m.wo, 1.0 / math.sqrt(m.wo.shape[0]))
+                if cfg.n_shared_experts:
+                    _init_mlp(m.shared, D, Fe * cfg.n_shared_experts, normal_)
+    for layer in getattr(model, "encoder", ()):
+        _init_attention(layer.attn, cfg, normal_)
+        _init_mlp(layer.mlp, D, cfg.d_ff, normal_)
     if not cfg.tie_embeddings:
-        _trunc_normal_(model.lm_head, 0.02, gen)
+        normal_(model.lm_head, 0.02)
     return model
 
 
 def init_cache(cfg: ModelConfig, B: int, max_seq: int, device="cuda") -> dict:
-    """Zero decode cache in the JAX layout: per block ``b{i}`` of the
-    period, ``k``/``v`` (P, B, max_seq, KV, hd) in the model dtype and
-    ``len`` (P,) int32."""
+    """Zero decode cache in the JAX layout (see the module docstring),
+    every leaf stacked over the periods."""
     check_supported(cfg)
     dev = resolve(device)
     P, dt = cfg.n_periods, _dtype(cfg)
-    shape = (P, B, max_seq, cfg.n_kv_heads, cfg.hd)
-    return {f"b{i}": {"k": torch.zeros(shape, dtype=dt, device=dev),
-                      "v": torch.zeros(shape, dtype=dt, device=dev),
-                      "len": torch.zeros(P, dtype=torch.int32, device=dev)}
-            for i in range(len(cfg.block_pattern))}
+    cache = {}
+    for i, kind in enumerate(cfg.block_pattern):
+        if kind == "attn":
+            shape = (P, B, max_seq, cfg.n_kv_heads, cfg.hd)
+            cache[f"b{i}"] = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                              "v": torch.zeros(shape, dtype=dt, device=dev),
+                              "len": torch.zeros(P, dtype=torch.int32, device=dev)}
+        elif kind == "mamba":
+            cache[f"b{i}"] = S.mamba_init_cache(cfg, B, dt, dev, periods=P)
+        elif kind == "mlstm":
+            cache[f"b{i}"] = X.mlstm_init_cache(cfg, B, dt, dev, periods=P)
+        else:
+            cache[f"b{i}"] = X.slstm_init_cache(cfg, B, dt, dev, periods=P)
+    return cache
 
 
-def _embed_in(params: DenseLM, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """The token embeddings in the model dtype: the table cast, then
-    gathered, as JAX's ``embed.astype(dtype)[tok]`` (so the gradient of the
-    gather accumulates in the model dtype there and here)."""
+def _embed_in(params: LM, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """The input embeddings in the model dtype: ``batch["embeds"]`` under
+    the embed frontend, else the token table cast, then gathered, as JAX's
+    ``embed.astype(dtype)[tok]`` (so the gradient of the gather accumulates
+    in the model dtype there and here)."""
+    if cfg.frontend == "embed":
+        return to_device(batch["embeds"], params.device).to(_dtype(cfg))
     tok = to_device(batch["tokens"], params.device).long()
     return params.embed.to(_dtype(cfg))[tok]
 
 
-def _head(params: DenseLM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _head(params: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = params.final_norm(x)
     w = params.embed if cfg.tie_embeddings else params.lm_head
     return F.linear(x, w.to(x.dtype))
+
+
+def encode(params: LM, cfg: ModelConfig, frames) -> torch.Tensor:
+    """The bidirectional encoder over frame embeddings (B, S_enc, D):
+    non-causal self-attention with RoPE at the encoder's positions (through
+    ``cfg.attn_impl``), dense MLPs, ``enc_norm`` (JAX ``encode``)."""
+    x = to_device(frames, params.device).to(_dtype(cfg))
+    B, Senc, _ = x.shape
+    pos = torch.arange(Senc, device=x.device)[None].expand(B, Senc)
+    for layer in params.encoder:
+        x = x + layer.attn(layer.ln_a(x), pos, causal=False, attn_impl=cfg.attn_impl)
+        x = x + layer.mlp(layer.ln_m(x))
+    return params.enc_norm(x)
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -181,30 +330,33 @@ def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def forward(params: DenseLM, cfg: ModelConfig, batch: dict, remat: str = "none"):
+def forward(params: LM, cfg: ModelConfig, batch: dict, remat: str = "none"):
     """Full-sequence logits (B, S, V) in the model dtype, and the auxiliary
-    loss (a float32 zero: the dense family has no router). ``remat``:
-    ``"none"``, ``"full"`` (recompute each period in the backward) or
-    ``"dots"`` (recompute all but the projections' outputs); the values do
-    not depend on it."""
+    loss (float32: the MoE load-balance losses summed over layers and
+    periods, zero without MoE). ``remat``: ``"none"``, ``"full"``
+    (recompute each period in the backward) or ``"dots"`` (recompute all but
+    the projections' outputs); the values do not depend on it."""
     if remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat {remat!r}")
     x = _embed_in(params, cfg, batch)
-    B, S, _ = x.shape
-    pos = torch.arange(S, device=x.device)[None].expand(B, S)
+    B, Sq, _ = x.shape
+    pos = torch.arange(Sq, device=x.device)[None].expand(B, Sq)
+    enc_out = encode(params, cfg, batch["frames"]) if cfg.encoder_layers else None
     ctx = {}
     if remat == "dots":
         ctx = dict(context_fn=functools.partial(create_selective_checkpoint_contexts,
                                                 _save_dots))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for period in params.layers:
         if remat == "none" or not torch.is_grad_enabled():
-            x = period(x, pos, cfg)
+            x, a = period(x, pos, cfg, enc_out)
         else:
-            x = checkpoint(period, x, pos, cfg, use_reentrant=False, **ctx)
-    return _head(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = checkpoint(period, x, pos, cfg, enc_out, use_reentrant=False, **ctx)
+        aux = aux + a
+    return _head(params, cfg, x), aux
 
 
-def loss_fn(params: DenseLM, cfg: ModelConfig, batch: dict, remat: str = "none"):
+def loss_fn(params: LM, cfg: ModelConfig, batch: dict, remat: str = "none"):
     """Next-token NLL over positions whose label is ``>= 0``, in float32,
     plus ``0.01 * aux``; returns ``(loss, {"nll", "aux"})`` as JAX's
     ``loss_fn``."""
@@ -221,45 +373,69 @@ def loss_fn(params: DenseLM, cfg: ModelConfig, batch: dict, remat: str = "none")
     return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
 
+def _put(c: dict, p: int, state: dict) -> None:
+    """Write one period's new recurrent state into the stacked cache."""
+    for name, t in state.items():
+        c[name][p].copy_(t)
+
+
 @torch.no_grad()
-def prefill(params: DenseLM, cfg: ModelConfig, batch: dict, max_seq: int):
-    """Run the prompt ``batch["tokens"]`` (B, S); return (last-position
-    logits (B, V), a fresh decode cache holding the prompt's keys and
-    values, ``None`` for the encoder output the dense family lacks)."""
+def prefill(params: LM, cfg: ModelConfig, batch: dict, max_seq: int):
+    """Run the prompt (``batch["tokens"]`` (B, S), or ``batch["embeds"]``
+    under the embed frontend, and ``batch["frames"]`` for an encoder);
+    return (last-position logits (B, V), a fresh decode cache holding the
+    prompt's keys and values and each recurrent block's state after the
+    prompt, the encoder output or ``None``)."""
     x = _embed_in(params, cfg, batch)
     B, Sq, _ = x.shape
     if Sq > max_seq:
         raise ValueError(f"prompt of {Sq} tokens exceeds max_seq={max_seq}")
     pos = torch.arange(Sq, device=x.device)[None].expand(B, Sq)
     keep = causal_keep(Sq, Sq, x.device) if cfg.causal else None
+    enc_out = encode(params, cfg, batch["frames"]) if cfg.encoder_layers else None
     cache = init_cache(cfg, B, max_seq, x.device)
     for p, period in enumerate(params.layers):
-        for i in range(period.n):
-            ln_b, attn, ln_m, mlp = period.block(i)
-            c = cache[f"b{i}"]
-            q, k, v = attn.qkv(ln_b(x), pos)
-            x = x + attn.out(_sdpa(q, k, v, keep))
-            c["k"][p, :, :Sq] = k
-            c["v"][p, :, :Sq] = v
-            c["len"][p] = Sq
-            x = x + mlp(ln_m(x))
-    return _head(params, cfg, x[:, -1:])[:, 0], cache, None
+        for i, kind in enumerate(period.kinds):
+            b, c = period.sub("b", i), cache[f"b{i}"]
+            h = period.sub("ln_b", i)(x)
+            if kind == "attn":
+                q, k, v = b.qkv(h, pos)
+                y = b.out(_sdpa(q, k, v, keep))
+                c["k"][p, :, :Sq] = k
+                c["v"][p, :, :Sq] = v
+                c["len"][p] = Sq
+            else:
+                y, state = _PREFILL[kind](b, cfg, h)
+                _put(c, p, state)
+            x, _ = period.tail(i, x + y, cfg, enc_out)
+    return _head(params, cfg, x[:, -1:])[:, 0], cache, enc_out
 
 
 @torch.no_grad()
-def decode_step(params: DenseLM, cfg: ModelConfig, cache: dict, token, pos):
-    """token (B,), pos (B,) -> (logits (B, V), cache). Row ``b`` writes its
-    key and value at ``pos[b]`` (in place) and attends to ``0..pos[b]``."""
+def decode_step(params: LM, cfg: ModelConfig, cache: dict, token, pos, enc_out=None):
+    """token (B,) (or embeddings (B, 1, D) under the embed frontend), pos
+    (B,) -> (logits (B, V), cache). Row ``b`` of an attention block writes
+    its key and value at ``pos[b]`` (in place) and attends to
+    ``0..pos[b]``; recurrent blocks step their state (in place);
+    cross-attention reads ``enc_out`` (the encoder output of ``prefill``)."""
     dev = params.device
-    token = to_device(token, dev).long()
+    token = to_device(token, dev)
     pos = to_device(pos, dev).long()
-    x = _embed_in(params, cfg, {"tokens": token[:, None]})
+    if cfg.frontend == "embed" and token.dim() == 3:
+        x = token.to(_dtype(cfg))
+    else:
+        x = _embed_in(params, cfg, {"tokens": token.long()[:, None]})
     for p, period in enumerate(params.layers):
-        for i in range(period.n):
-            ln_b, attn, ln_m, mlp = period.block(i)
-            c = cache[f"b{i}"]
-            x = x + attn.decode(ln_b(x), c["k"][p], c["v"][p], pos)
-            x = x + mlp(ln_m(x))
+        for i, kind in enumerate(period.kinds):
+            b, c = period.sub("b", i), cache[f"b{i}"]
+            h = period.sub("ln_b", i)(x)
+            if kind == "attn":
+                y = b.decode(h, c["k"][p], c["v"][p], pos)
+            else:
+                y, state = _DECODE[kind](b, cfg, h, {n: t[p] for n, t in c.items()})
+                _put(c, p, state)
+            x, _ = period.tail(i, x + y, cfg, enc_out)
     for c in cache.values():
-        c["len"] += 1
+        if "len" in c:
+            c["len"] += 1
     return _head(params, cfg, x)[:, 0], cache

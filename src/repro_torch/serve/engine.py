@@ -294,11 +294,11 @@ class ServeEngine:
 
             # decode writes every row at its own pos, so idle slots overwrite
             # their own stale cell; only the active rows are sampled. Every
-            # row that is not a model slot feeds token 0: its last_tok may be
-            # a pool index or a flat texel id (a live or retired prior or 2-D
-            # request) beyond the vocabulary.
-            tokens = np.zeros_like(self.last_tok)
-            tokens[model_slots] = self.last_tok[model_slots]
+            # row feeds its last token, as in the JAX engine, clamped to the
+            # vocabulary as JAX's gather clamps it: a prior or 2-D slot's
+            # last_tok is a pool index or a flat texel id. Idle rows matter
+            # under MoE, where they take capacity in the same dispatch groups.
+            tokens = np.minimum(self.last_tok, self.cfg.vocab - 1)
             logits, self.cache = decode_step(self.params, self.cfg, self.cache,
                                              tokens, self.pos)
             act = np.asarray(model_slots)

@@ -1,4 +1,4 @@
-"""AdamW with warmup and a cosine schedule, over a :class:`DenseLM`'s
+"""AdamW with warmup and a cosine schedule, over a :class:`~repro_torch.models.LM`'s
 parameters.
 
 The arithmetic of the JAX package's ``train/optimizer.py``, in float32:
@@ -47,12 +47,12 @@ def _params(params) -> dict:
 def decays(name: str, p: torch.Tensor) -> bool:
     """Whether AdamW decays parameter ``name``. The JAX optimizer decays the
     leaves of rank >= 2 (``p.ndim >= 2``), and its per-layer leaves are
-    stacked over the periods, one axis more than the port's tensors under
-    ``layers.``: so there every per-layer leaf, norm scales and QKV biases
-    included, is decayed, and of the top-level leaves only
-    ``final_norm.scale`` (D,) is not. The rule reads the JAX leaf's rank,
-    not the port tensor's (ROADMAP C8)."""
-    jax_rank = p.dim() + 1 if name.startswith("layers.") else p.dim()
+    stacked over the periods (the encoder's over its layers), one axis more
+    than the port's tensors under ``layers.`` and ``encoder.``: so there
+    every per-layer leaf, norm scales and QKV biases included, is decayed,
+    and of the top-level leaves only the norm scales (D,) are not. The rule
+    reads the JAX leaf's rank, not the port tensor's (ROADMAP C8)."""
+    jax_rank = p.dim() + 1 if name.startswith(("layers.", "encoder.")) else p.dim()
     return jax_rank >= 2
 
 

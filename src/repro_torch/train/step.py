@@ -23,11 +23,11 @@ from .optimizer import AdamWConfig, OptState, apply_updates
 def make_train_step(cfg: ModelConfig, oc: AdamWConfig, remat: str = "dots",
                     microbatches: int = 1, grad_dtype: str = "float32"):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt,
-    metrics)``. ``params`` is a :class:`DenseLM` whose parameters require
-    grad; it and ``opt_state`` are updated in place. ``batch`` holds (B, ...)
-    arrays or tensors; with ``microbatches=k`` they are cut into ``k``
-    microbatches of ``B/k`` rows. ``metrics``: ``loss``, ``grad_norm``,
-    ``lr`` (float32 tensors)."""
+    metrics)``. ``params`` is a :class:`~repro_torch.models.LM` whose
+    parameters require grad; it and ``opt_state`` are updated in place.
+    ``batch`` holds (B, ...) arrays or tensors; with ``microbatches=k`` they
+    are cut into ``k`` microbatches of ``B/k`` rows. ``metrics``: ``loss``,
+    ``grad_norm``, ``lr`` (float32 tensors)."""
     gdt = torch.bfloat16 if grad_dtype == "bfloat16" else torch.float32
 
     def grads_of(params, batch):
@@ -61,13 +61,14 @@ def make_train_step(cfg: ModelConfig, oc: AdamWConfig, remat: str = "dots",
 
 
 def make_serve_step(cfg: ModelConfig, temperature: float = 1.0):
-    """Returns ``serve_step(params, cache, token, pos, xi) -> (next_token
-    (B,) int32, cache)``. ``xi``: one uniform per row (B,), e.g. from the
-    per-slot QMC streams, which keep the monotone warp stratified."""
+    """Returns ``serve_step(params, cache, token, pos, xi[, enc_out]) ->
+    (next_token (B,) int32, cache)``. ``xi``: one uniform per row (B,), e.g.
+    from the per-slot QMC streams, which keep the monotone warp stratified;
+    ``enc_out``: the encoder output of the prefill, for an encoder-decoder."""
 
     @torch.no_grad()
-    def serve_step(params, cache, token, pos, xi):
-        logits, cache = model_decode(params, cfg, cache, token, pos)
+    def serve_step(params, cache, token, pos, xi, enc_out=None):
+        logits, cache = model_decode(params, cfg, cache, token, pos, enc_out)
         cdf = ops.fused_cdf(logits / temperature, softmax=True)
         xi = to_device(xi, logits.device, torch.float32)
         return ops.sample_rows(cdf, xi[:, None])[:, 0], cache
@@ -76,7 +77,9 @@ def make_serve_step(cfg: ModelConfig, temperature: float = 1.0):
 
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int):
-    """Returns ``prefill_step(params, batch) -> (last logits, cache, None)``."""
+    """Returns ``prefill_step(params, batch) -> (last logits, cache,
+    enc_out)``; ``enc_out`` is the encoder output (``None`` without an
+    encoder), which ``serve_step`` takes."""
 
     def prefill_step(params, batch):
         return prefill(params, cfg, batch, max_seq=max_seq)

@@ -753,6 +753,40 @@ def test_flash_attention_matches_plain(cuda, B, Sq, Sk, H, KV, hd, causal, dtype
                                rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("B,S,H,KV", [(1, 1024, 64, 8), (2, 1000, 8, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_hd112_matches_plain(cuda, B, S, H, KV, causal, dtype):
+    """Head dim 112 (Kimi K2: 7168 / 64 heads), which runs the hd-128 tile
+    over zero-filled columns: Kimi's heads at 1024 tokens and a ragged GQA
+    case, scaled by 1/sqrt(112), against the plain version; no column past
+    112 is written."""
+    q, k, v = _qkv(B, S, S, H, KV, 112, dtype, S + H, cuda)
+    buf = torch.full((B, S, H, 128), 7.0, dtype=dtype, device=cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = ref.ref_flash_attention(q, k, v, causal=causal)
+    tol = FLASH_TOL[dtype]
+    assert got.shape == q.shape and got.dtype == dtype
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=tol, atol=tol)
+    # an output view whose rows are 128 wide: the 16 columns past 112 stay as they were
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import _strides
+
+    o = buf[..., :112]
+    err = _build.library().rt_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, S, H, KV, 112,
+        *_strides(q), *_strides(k), *_strides(v), *_strides(o), int(causal),
+        int(dtype == torch.bfloat16), 112 ** -0.5, _build.stream_of(q))
+    _build.check(err, "flash_attention")
+    torch.cuda.synchronize()
+    assert torch.equal(o, got)
+    assert bool((buf[..., 112:] == 7.0).all())
+
+
 def test_flash_attention_reads_strided_heads(cuda):
     """q/k/v as transposed views of (B, heads, S, hd) tensors: read through
     their strides, with the result of the contiguous inputs."""
@@ -880,8 +914,8 @@ def test_flash_attention_bf16_runs_on_tensor_cores(cuda):
     sass = {n: t for n, t in _build.sass().items() if "flash_attention" in n}
     bf16 = {n: t.count("HGMMA") for n, t in sass.items() if "bf16" in n}
     f32 = {n: t.count("HGMMA") for n, t in sass.items() if "f32" in n}
-    assert len(bf16) == 3 and all(bf16.values()), bf16
-    assert len(f32) == 3 and all(f32.values()), f32
+    assert len(bf16) == 4 and all(bf16.values()), bf16  # hd 32, 64, 128, 112
+    assert len(f32) == 4 and all(f32.values()), f32
 
 
 def test_forward_flash_matches_einsum_on_card(cuda):

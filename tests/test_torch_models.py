@@ -1,5 +1,7 @@
-"""The port's dense LM (``prefill``, ``decode_step``, the config registry)
-against the JAX package, at reduced widths in float32.
+"""The port's LM (``prefill``, ``decode_step``, the config registry)
+against the JAX package, at reduced widths in float32: the dense archs,
+and xLSTM for a recurrent decode cache (mLSTM ``C``/``n``, sLSTM
+``c``/``h``/``m``/``n``) carried across packages.
 
 JAX ``init_params`` weights are carried across with
 ``interop.params_from_jax``; both sides run the same numpy tokens. Logits
@@ -14,6 +16,11 @@ logits (|logit| < 1 here) are held to ``atol=2e-2`` and cache entries to
 two bf16 ulps (``rtol=atol=2^-6``); on this CPU, over 3 seeds of both
 reduced archs, the largest logit gap was 5.9e-3 and the largest cache gap
 one bf16 ulp.
+
+A JAX decode cache crosses into the port as a JAX engine snapshot stores
+it: its ``tree_leaves`` through the JAX package's ``save_state`` and the
+port's ``load_state``, then ``cache_from_jax``; the port then decodes the
+same next tokens as JAX.
 """
 import dataclasses
 
@@ -24,10 +31,12 @@ import pytest
 import torch
 
 import repro.configs as JC
+from repro.ckpt import save_state as jax_save_state
 from repro.models import decode_step as jax_decode_step
 from repro.models import init_params as jax_init_params
 from repro.models import prefill as jax_prefill
 import repro_torch.configs as TC
+from repro_torch.ckpt import load_state
 from repro_torch.interop import cache_from_jax, cache_to_leaves, params_from_jax
 from repro_torch.models import decode_step, forward, init_params, prefill
 
@@ -51,7 +60,7 @@ def _np(x) -> np.ndarray:
     return np.asarray(x.float() if isinstance(x, torch.Tensor) else x, np.float32)
 
 
-@pytest.fixture(scope="module", params=ARCHS + ["qwen1_5_0_5b-bfloat16"])
+@pytest.fixture(scope="module", params=ARCHS + ["qwen1_5_0_5b-bfloat16", "xlstm_1_3b"])
 def carried(request):
     """(JAX cfg, port cfg, JAX params, port model): JAX weights with
     non-zero biases and norm scales, so every parameter is exercised."""
@@ -71,8 +80,9 @@ def test_registry_matches_jax():
         assert dataclasses.asdict(TC.get_reduced(arch)) == dataclasses.asdict(
             JC.get_reduced(arch))
         assert TC.canonical(JC.get(arch).name) == arch
-    with pytest.raises(KeyError, match="A8"):
-        TC.get("jamba_1_5_large_398b")
+    assert TC.ARCHS == JC.ARCHS
+    with pytest.raises(KeyError, match="unknown architecture"):
+        TC.get("no_such_arch")
 
 
 def test_prefill_and_decode_match_jax(carried):
@@ -102,18 +112,21 @@ def test_prefill_and_decode_match_jax(carried):
         np.testing.assert_allclose(_np(a), _np(b), atol=cache_atol, rtol=cache_rtol)
 
 
-def test_cache_from_jax_leaves_decodes_like_jax(carried):
+def test_cache_from_jax_leaves_decodes_like_jax(carried, tmp_path):
     jcfg, tcfg, jp, model = carried
     rng = np.random.default_rng(3)
     toks = rng.integers(0, jcfg.vocab, (2, 5))
     _, jcache, _ = jax_prefill(jp, jcfg, {"tokens": jnp.asarray(toks, jnp.int32)}, max_seq=16)
-    cache = cache_from_jax([np.asarray(x) for x in jax.tree_util.tree_leaves(jcache)],
-                           tcfg, 2, 16, "cpu")
+    jax_save_state(tmp_path, {"cache": [np.asarray(x)
+                                        for x in jax.tree_util.tree_leaves(jcache)]}, 0)
+    state, _ = load_state(tmp_path)
+    cache = cache_from_jax(state["cache"], tcfg, 2, 16, "cpu")
     tok, pos = np.asarray([1, 2]), np.asarray([5, 5])
     jl, _ = jax_decode_step(jp, jcfg, jcache, jnp.asarray(tok, jnp.int32),
                             jnp.asarray(pos, jnp.int32))
     tl, _ = decode_step(model, tcfg, cache, torch.tensor(tok), torch.tensor(pos))
     np.testing.assert_allclose(_np(tl), _np(jl), atol=TOL[tcfg.dtype][0], rtol=0)
+    np.testing.assert_array_equal(_np(tl).argmax(-1), _np(jl).argmax(-1))
     with pytest.raises(ValueError):
         cache_from_jax([np.asarray(x) for x in jax.tree_util.tree_leaves(jcache)],
                        tcfg, 3, 16, "cpu")
@@ -152,10 +165,10 @@ def test_unsupported_configs_raise():
     model = init_params(flash, device="cpu").requires_grad_()
     with pytest.raises(NotImplementedError, match="B10"):
         forward(model, flash, {"tokens": torch.zeros(1, 4).long()})
-    with pytest.raises(NotImplementedError, match="A8"):
-        init_params(dataclasses.replace(cfg, mlp_pattern=("moe",)), device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        init_params(dataclasses.replace(cfg, block_pattern=("attn", "mamba"), n_layers=2),
+    with pytest.raises(ValueError, match="unknown mlp kind"):
+        init_params(dataclasses.replace(cfg, mlp_pattern=("sparse",)), device="cpu")
+    with pytest.raises(ValueError, match="unknown block kind"):
+        init_params(dataclasses.replace(cfg, block_pattern=("attn", "rwkv"), n_layers=2),
                     device="cpu")
     with pytest.raises(ValueError, match="max_seq"):
         prefill(init_params(cfg, device="cpu"), cfg, {"tokens": torch.zeros(1, 9).long()}, 8)
