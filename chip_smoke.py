@@ -108,6 +108,22 @@ the ignored ``build/`` directory), then:
    prefill ms, decode tokens/s, a decode step's launches and idle share,
    peak memory, and each model's B3/B9/B10 launches (their device ms from
    the path's second run, each model under torch.profiler);
+   9c. the families' training path (``families_train_path``): the same six
+   families with float32 masters and bf16 compute, one at a time, each cut
+   printed beside the published config's train state (``FAMILY_TRAIN``:
+   xLSTM-1.3B 24 of 48 layers, Whisper-small uncut, InternVL2 2 layers,
+   Kimi K2 one layer with 16 experts, Llama 4 one layer with 8, Jamba one
+   period at the serve cut with 2 experts; 8 x 256, Jamba 4 x 256): the
+   first step repeated bitwise under deterministic algorithms (Whisper: its
+   Trainer killed at step 2 and resumed instead, after the path), bf16 against
+   float32 compute at one layer, a warm step and 3 timed
+   ``make_train_step`` steps on a ``MixtureSampler``'s batches (B3, B2,
+   B1), losses finite and falling, one step profiled; ms a step,
+   tokens/s, the model-FLOPs share of the card's bf16 rate
+   (``launch.analytic``), peak memory under 72 GiB, launches and idle
+   share a step (its device ms from a replay of each family's mixture
+   and batches under torch.profiler, the only launches of the port's
+   kernels on this path);
    3b. the dist phase (``dist_path``) on a single-rank nccl group: the
    same weights through ``build_cdf_sharded`` and ``build_forest_sharded``,
    the 2^24 uniforms through ``sample_sharded`` routed and with the
@@ -125,13 +141,14 @@ the ignored ``build/`` directory), then:
    (Qwen1.5-0.5B, 16 slots, KV cache) saved mid-flight through disk, their
    next drains and tokens equal to the originals';
 10. prints the kernels line (launch counts from the runs of steps 3, 3b, 4,
-   5, 6, 7b, 8, 9's eval and train paths and 9b, each with every count set
-   to 0 just before it; each kernel's launches and summed device time on
-   each of the ten paths, main, dist, paper, map2d, pool, robust, serve,
-   eval, train and families: the time
+   5, 6, 7b, 8, 9's eval and train paths, 9b and 9c, each with every count
+   set to 0 just before it; each kernel's launches and summed device time
+   on each of the eleven paths, main, dist, paper, map2d, pool, robust,
+   serve, eval, train, families and families_train: the time
    from torch.profiler, CUDA activity only, by the kernels' symbols, around
-   a second counted run of each path
-   at the end, so the first runs' times carry no tracing cost; ``cdf_scan``
+   a second counted run of each path (of families_train, a replay of its
+   mixtures and batches) at the end, printed with the device records
+   beside the launches, so the first runs' times carry no tracing cost; ``cdf_scan``
    also carries its decode-shape times as ``at_decode``, B6 and B8 their
    drain-shape times as ``at_drain``, B9 its shapes and the launch floor as
    ``at_shapes`` and ``launch_floor_ms``, B10 its float32 rows as
@@ -431,19 +448,20 @@ def profile_calls(calls) -> None:
         profile_one(name, fn)
 
 
-def profile_one(name: str, fn, trace: bool = False) -> dict:
+def profile_one(name: str, fn, trace: bool = False, cpu: bool = True) -> dict:
     """Wall, device busy time, idle share and kernel launches of one call
-    (torch.profiler, CPU and CUDA activity), printed with the heaviest
-    kernels; empty where the profiler measured no device time. Where an
-    outer trace is running (``trace``), the call runs untraced and nothing
-    is read."""
+    (torch.profiler, CPU and CUDA activity; CUDA alone where ``cpu`` is
+    false), printed with the heaviest kernels; empty where the profiler
+    measured no device time. Where an outer trace is running (``trace``),
+    the call runs untraced and nothing is read."""
     from torch.profiler import ProfilerActivity, profile
 
     if trace:
         fn()
         return {}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -483,7 +501,7 @@ KERNEL_SYMBOLS = {
     "flash_attention": ("flash_attention_f32_tf32x3", "flash_attention_bf16_wgmma"),
 }
 PATHS = ("main", "dist", "paper", "map2d", "pool", "robust", "serve", "eval", "train",
-         "families")
+         "families", "families_train")
 
 
 def kernel_of(key: str):
@@ -513,6 +531,16 @@ def kernel_device_ms(prof) -> dict:
         k = kernel_of(e.key)
         if k is not None:
             out[k] += dev_us(e) / 1e3
+    return out
+
+
+def kernel_records(prof) -> dict:
+    """The number of device records of each wrapper's kernels in a profile."""
+    out = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for e in device_events(prof):
+        k = kernel_of(e.key)
+        if k is not None:
+            out[k] += e.count
     return out
 
 
@@ -2918,6 +2946,255 @@ def families_traced(device, counts: dict) -> tuple[list, dict]:
     return recs, total
 
 
+# ---------------------------------------------------------------------------
+# The families' training path: make_train_step for the six families beyond
+# the dense one, float32 masters and bf16 compute, one model at a time.
+# ---------------------------------------------------------------------------
+
+FAMILY_TRAIN_S = 256
+FAMILY_TRAIN_STEPS = 4      # one warm step, then three timed
+# (arch, overrides of the published config, batch rows, remat, the cut as
+# printed). Each cut is the least that fits the card: float32 master,
+# gradient and two moments take 16 B a parameter, and the peak must stay
+# under FAMILY_TRAIN_PEAK_GIB, in the smoke's time. xLSTM's sLSTM steps its
+# tokens one at a time, forward and backward. Uncut, at remat full (remat
+# none ran out of memory in the first forward), the family took 388.6 s on
+# an H100 80GB HBM3 at 700 W: 24.5 s a step, and 188.6 s to profile one
+# step's 631,301 launches. That would take the smoke past 1200 s. At 24
+# layers and remat none the family took 128.7 s, peak 53.68 GiB (about 2 GiB
+# a layer more), which leaves the smoke a fifth of its limit for the card's
+# spread.
+FAMILY_TRAIN = (
+    ("xlstm_1_3b", dict(n_layers=24), 8, "none",
+     "depth cut to 24 of 48 layers, published widths: uncut (remat full) the family took "
+     "388.6 s, more than the smoke's time allows"),
+    ("whisper_small", {}, 8, "none",
+     "none: 12 encoder and 12 decoder layers; frames = the sequence, as make_batch draws them"),
+    ("internvl2_76b", dict(n_layers=2), 8, "none",
+     "depth cut to 2 of 80 layers; published widths, embed frontend (no embed table)"),
+    ("kimi_k2_1t_a32b", dict(n_layers=1, n_experts=16), 8, "none",
+     "depth cut to 1 of 61 layers; experts cut to 16 of 384 (a width cut); top-8, 1 shared "
+     "expert, hd 112 and capacity factor 1.25 kept"),
+    ("llama4_maverick_400b_a17b", dict(n_layers=1, n_experts=8), 8, "none",
+     "depth cut to 1 of 48 layers; experts cut to 8 of 128 (a width cut); top-1 and the "
+     "shared expert kept"),
+    ("jamba_1_5_large_398b",
+     dict(n_layers=8, d_model=4096, d_ff=12288, head_dim=128, n_experts=2), 4, "none",
+     "one period of 8 layers (of 9) at the serve path's cut: d_model 4096 (of 8192), d_ff "
+     "12288 (of 24576), hd 128; experts cut to 2 of 16 (a width cut), top-2 kept; batch 4"),
+)
+FAMILY_TRAIN_PEAK_GIB = 72.0
+FAMILY_TRAIN_RESUME = "whisper_small"  # its Trainer is killed and resumed (train_path)
+# bf16 against float32 compute (TF32 off), the first step from the same
+# float32 masters at 1 layer (1 period for xLSTM and Jamba; Whisper 1 + 1):
+# |loss_bf16 - loss_f32| / loss_f32 and the same for the global gradient norm
+BF16_LOSS_REL = 1e-2
+BF16_GNORM_REL = 5e-2
+
+
+def train_state_gib(cfg) -> float:
+    """Float32 master, gradient and two moments, 16 B a parameter, counted
+    on the LM built on ``meta`` (``launch.shapes.params_struct``)."""
+    from repro_torch.launch.shapes import params_struct
+
+    return sum(p.numel() for p in params_struct(cfg).parameters()) * 16 / 2**30
+
+
+def family_repeat_check(cfg, model, batch, remat: str) -> None:
+    """The first step's loss and every gradient twice from the same state
+    under ``torch.use_deterministic_algorithms(True)``: bitwise equal (the
+    first gradients held on the host)."""
+    from repro_torch.train.step import loss_and_grads
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        l0, g = loss_and_grads(model, cfg, batch, remat)
+        first = {k: t.cpu() for k, t in g.items()}
+        del g
+        l1, g = loss_and_grads(model, cfg, batch, remat)
+        same = torch.equal(l0, l1) and all(torch.equal(first[k], t.cpu()) for k, t in g.items())
+        del g, first
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(same, f"{cfg.name}: the first step repeated is bitwise equal (loss and every gradient)")
+
+
+def one_layer(cfg) -> dict:
+    """Overrides for the bf16 check's model: one period of the block
+    pattern (one layer where the pattern has one block), one encoder
+    layer."""
+    over = dict(n_layers=len(cfg.block_pattern))
+    if cfg.encoder_layers:
+        over["encoder_layers"] = 1
+    return over
+
+
+def family_bf16_check(cfg, model, batch, remat: str) -> dict:
+    """The first step's loss and global gradient norm in bf16 compute and in
+    float32 compute (TF32 off) from the same float32 masters: their
+    relative differences within BF16_LOSS_REL and BF16_GNORM_REL."""
+    import dataclasses
+
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.step import loss_and_grads
+
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        loss, g = loss_and_grads(model, dataclasses.replace(cfg, dtype=dt), batch, remat)
+        out[dt] = (float(loss), float(global_norm(g.values())))
+        del g
+    (l16, n16), (l32, n32) = out["bfloat16"], out["float32"]
+    rel_l, rel_n = abs(l16 - l32) / abs(l32), abs(n16 - n32) / abs(n32)
+    check(math.isfinite(rel_l) and rel_l <= BF16_LOSS_REL and math.isfinite(rel_n)
+          and rel_n <= BF16_GNORM_REL,
+          f"{cfg.name}: bf16 against float32 compute, loss {l16} vs {l32} (rel {rel_l:.3e}, "
+          f"bound {BF16_LOSS_REL}), grad norm {n16} vs {n32} (rel {rel_n:.3e}, bound "
+          f"{BF16_GNORM_REL})")
+    return dict(bf16_loss=l16, f32_loss=l32, bf16_gnorm=n16, f32_gnorm=n32, loss_rel=rel_l,
+                gnorm_rel=rel_n, bf16_layers=cfg.n_layers)
+
+
+def free_cuda() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_train(device, arch: str, over: dict, B: int, remat: str, cut: str) -> dict:
+    """One family: the cut and the train state it leaves; the first step
+    repeated bitwise under deterministic algorithms (not Whisper, whose
+    Trainer is killed and resumed instead, after this path); bf16 against
+    float32 compute at one layer; then a MixtureSampler (B3, B2) and
+    FAMILY_TRAIN_STEPS make_train_step steps on its batches (B1 a batch),
+    the first warm, the rest timed; one more step profiled (CUDA activity
+    only: xLSTM's step launches ~250k kernels, too many to trace the host's
+    side of in the smoke's time). The model is freed before the next
+    family."""
+    import repro_torch.configs as C
+    from repro_torch.data import MixtureSampler, make_batch
+    from repro_torch.kernels.cdf_scan import cdf_scan
+    from repro_torch.kernels.forest_delta import forest_delta
+    from repro_torch.kernels.forest_sample import forest_pack, forest_sample
+    from repro_torch.launch.analytic import step_flops
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, init_opt
+    from repro_torch.train.step import make_train_step
+
+    S, steps = FAMILY_TRAIN_S, FAMILY_TRAIN_STEPS
+    cfg = family_cfg(arch, over)
+    kernels = {"cdf_scan": cdf_scan, "forest_delta": forest_delta,
+               "forest_sample": forest_sample, "forest_pack": forest_pack}
+    rec = dict(arch=arch, name=cfg.name, B=B, S=S)
+    rec.update(state_gib=train_state_gib(cfg), published_state_gib=train_state_gib(C.get(arch)))
+    print(f"families_train: {cfg.name} cut: {cut}; train state {rec['state_gib']:.1f} GiB "
+          f"(16 B a parameter; the published config {rec['published_state_gib']:.1f} GiB)",
+          flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = init_params(cfg, gen, device, param_dtype=torch.float32).requires_grad_(True)
+    rec["params"] = sum(p.numel() for p in model.parameters())
+    first = make_batch(cfg, 0, B, S)
+    if arch != FAMILY_TRAIN_RESUME:
+        family_repeat_check(cfg, model, first, remat)
+    small = one_layer(cfg)
+    if all(getattr(cfg, k) == v for k, v in small.items()):
+        rec.update(family_bf16_check(cfg, model, first, remat))
+    else:
+        import dataclasses
+
+        c1 = dataclasses.replace(cfg, **small)
+        m1 = init_params(c1, torch.Generator(device=device).manual_seed(0), device,
+                         param_dtype=torch.float32).requires_grad_(True)
+        rec.update(family_bf16_check(c1, m1, make_batch(c1, 0, B, S), remat))
+        del m1
+    del first
+    free_cuda()
+
+    oc = AdamWConfig(total_steps=100, warmup_steps=1)
+    opt = init_opt(oc, model)
+    step_fn = make_train_step(cfg, oc, remat=remat)
+    before = {k: fn.launches for k, fn in kernels.items()}
+    mixture = MixtureSampler(MIXTURE, seed=0, device=device)
+    losses, times = [], []
+    for step in range(steps):
+        batch = make_batch(cfg, step, B, S, mixture=mixture)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model, opt, m = step_fn(model, opt, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+    rec["launches"] = {k: fn.launches - before[k] for k, fn in kernels.items()}
+    check(all(math.isfinite(x) for x in losses), f"{cfg.name}: finite train losses {losses}")
+    check(losses[-1] < losses[0], f"{cfg.name}: the train loss falls: {losses}")
+    ms = statistics.median(times[1:])
+    flops = step_flops(cfg, "train", S, B, remat)["step_flops"]
+    rec.update(losses=losses, ms=ms, step_times_ms=times, tokens_per_s=B * S / ms * 1e3,
+               step_flops=flops, flops_share=flops / (ms / 1e3) / BF16_OPS_PER_S)
+    rec["step"] = profile_one(f"{cfg.name} train step ({B} x {S})",
+                              lambda: step_fn(model, opt, batch), cpu=False)
+    torch.cuda.synchronize()
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rec["wall_s"] = time.perf_counter() - t0
+    check(rec["peak_gib"] < FAMILY_TRAIN_PEAK_GIB,
+          f"{cfg.name}: peak {rec['peak_gib']:.2f} GiB under {FAMILY_TRAIN_PEAK_GIB}")
+    step = rec["step"]
+    print(f"families_train {cfg.name}: {rec['params']} parameters, batch {B} x {S}, "
+          f"float32 masters, bf16 compute, einsum attention, remat {remat}; losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)}; step {ms:.3f} ms (median of "
+          f"{steps - 1} after one warm step, host clock, synchronized; steps "
+          f"{', '.join(f'{x:.1f}' for x in times)}), {rec['tokens_per_s']:.1f} tokens/s; "
+          f"model FLOPs {flops:.4e} a step (launch.analytic), "
+          f"{rec['flops_share']:.4f} of {BF16_OPS_PER_S:.3g} FLOP/s; peak "
+          f"{rec['peak_gib']:.2f} GiB (bound {FAMILY_TRAIN_PEAK_GIB}); profiled step "
+          + (f"{step['launches']} launches, idle share {step['idle']:.3f}, device busy "
+             f"{step['busy_ms']:.3f} of {step['wall_ms']:.3f} ms" if step else "not measured")
+          + f"; bf16 vs float32 at {rec['bf16_layers']} layer(s): loss {rec['bf16_loss']:.6f} "
+          f"vs {rec['f32_loss']:.6f} (rel {rec['loss_rel']:.3e}, bound {BF16_LOSS_REL}), grad "
+          f"norm {rec['bf16_gnorm']:.6f} vs {rec['f32_gnorm']:.6f} (rel {rec['gnorm_rel']:.3e}, "
+          f"bound {BF16_GNORM_REL}); "
+          + ("first step repeated bitwise under deterministic algorithms; "
+             if arch != FAMILY_TRAIN_RESUME else "")
+          + "launches " + ", ".join(f"{k} {v}" for k, v in rec["launches"].items())
+          + f"; the family's run {rec['wall_s']:.1f} s", flush=True)
+    del model, opt, batch, step_fn
+    free_cuda()
+    return rec
+
+
+def families_train_path(device, families=FAMILY_TRAIN) -> list:
+    """Every family of FAMILY_TRAIN in turn (see family_train)."""
+    return [family_train(device, arch, over, B, remat, cut)
+            for arch, over, B, remat, cut in families]
+
+
+def families_train_replay(device, families=FAMILY_TRAIN) -> None:
+    """The families_train path's launches of the port's kernels again, for
+    their device time: each family's MixtureSampler (B3, B2, B1's pack) and
+    its FAMILY_TRAIN_STEPS batches (B1). The models' steps launch none of
+    the port's kernels, and rerunning them would cost the smoke minutes."""
+    from repro_torch.data import MixtureSampler, make_batch
+
+    for arch, over, B, _, _ in families:
+        cfg = family_cfg(arch, over)
+        mixture = MixtureSampler(MIXTURE, seed=0, device=device)
+        for step in range(FAMILY_TRAIN_STEPS):
+            make_batch(cfg, step, B, FAMILY_TRAIN_S, mixture=mixture)
+
+
+def whisper_resume(device, ckpt_root: Path) -> None:
+    """Whisper-small's Trainer at FAMILY_TRAIN's batch: killed at step 2 and
+    resumed, bitwise equal under deterministic algorithms (train_path)."""
+    arch, over, B, _, _ = next(f for f in FAMILY_TRAIN if f[0] == FAMILY_TRAIN_RESUME)
+    train_path(device, family_cfg(arch, over), ckpt_root, B=B, S=FAMILY_TRAIN_S,
+               steps=FAMILY_TRAIN_STEPS)
+    free_cuda()
+
+
 def run(build_s: float) -> dict:
     """The whole smoke run on the card (``build_s``: the kernel library's
     build time); returns the kernels record."""
@@ -2994,12 +3271,14 @@ def run(build_s: float) -> dict:
         check({k: fn.launches for k, fn in wrappers.items()} == counts[label],
               f"the {label} path launches the same kernels when run again")
         path_ms[label] = kernel_device_ms(prof)
+        records = kernel_records(prof)
         for k, c in counts[label].items():
             check(c == 0 or path_ms[label][k] > 0,
                   f"{k}: device time on the {label} path under its symbols")
-        print(f"kernel device ms on the {label} path (profiler, a second counted run): "
-              + ", ".join(f"{k} {v:.4f}" for k, v in path_ms[label].items() if v > 0),
-              flush=True)
+        print(f"kernel device ms on the {label} path (profiler, the path's launches again; "
+              "device records / launches): "
+              + ", ".join(f"{k} {v:.4f} ({records[k]} / {counts[label][k]})"
+                          for k, v in path_ms[label].items() if v > 0), flush=True)
         return out
 
     counted("main", main_path, device, weights, m, n_draws, gen)
@@ -3075,6 +3354,12 @@ def run(build_s: float) -> dict:
     counted("families", families_path, device)
     for name in ("cdf_scan", "sample_rows", "flash_attention"):
         check(counts["families"][name] > 0, f"{name} launched on the families path")
+    counted("families_train", families_train_path, device)
+    for name in ("cdf_scan", "forest_delta", "forest_sample", "forest_pack"):
+        check(counts["families_train"][name] > 0,
+              f"{name} launched by the families' training mixtures")
+    check(counts["families_train"]["flash_attention"] == 0, "training runs einsum attention")
+    whisper_resume(device, ckpt_root)
 
     profiled("main", main_path, device, weights, m, n_draws, gen)
     profiled("dist", dist_path, device, weights, m, n_draws, gen)
@@ -3088,6 +3373,7 @@ def run(build_s: float) -> dict:
     profiled("eval", eval_path, device, tcfg)
     profiled("train", train_path, device, tcfg, ckpt_root)
     _, path_ms["families"] = families_traced(device, counts["families"])
+    profiled("families_train", families_train_replay, device)
 
     sources = {k: (f"{k}.cu", r) for k, r in (
         ("cdf_scan", "src/repro/kernels/cdf_scan.py:78"),

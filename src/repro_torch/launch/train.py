@@ -3,8 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b --preset full --steps 4 --batch 8 --seq 256
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b --preset reduced --steps 2 --device cpu
 
-``--preset full`` takes the architecture's published widths, ``reduced`` the
-CPU smoke scale; float32 master parameters, compute in the config's dtype,
+``--arch`` takes any of the ten architectures of ``repro_torch.configs``
+(or an alias); ``--preset full`` takes its published widths, ``reduced``
+the CPU smoke scale; float32 master parameters, compute in the config's dtype,
 einsum attention, checkpoints under ``--ckpt`` (default
 ``checkpoints/<arch>_<preset>``; a run there resumes from its latest
 checkpoint). ``--device`` defaults to ``cuda``.

@@ -5,8 +5,10 @@ The full-sequence forward runs the recurrence ``h_t = a_t * h_{t-1} +
 bx_t`` as a log-depth scan over time (Hillis-Steele: ``ceil(log2 S)``
 rounds of whole-tensor products), the counterpart of JAX's
 ``associative_scan``; the two sum in other orders, so they agree to a
-relative bound, not bit for bit. Decode carries (the last ``K - 1`` conv
-inputs, the float32 state ``h``) per layer: O(1) per token.
+relative bound, not bit for bit. Its backward is the adjoint scan over
+reversed time (``_SsmScan``), so training keeps one copy of the state a
+layer. Decode carries (the last ``K - 1`` conv inputs, the float32 state
+``h``) per layer: O(1) per token.
 """
 from __future__ import annotations
 
@@ -45,16 +47,52 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
 
 
-def ssm_scan(a: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
-    """h_t = a_t * h_{t-1} + bx_t along axis 1 (h_{-1} = 0), as a
-    Hillis-Steele scan of the pairs (a, bx) under JAX's ``combine``."""
-    a, h = a.clone(), bx.clone()
+def _scan(a: torch.Tensor, h: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """The Hillis-Steele rounds on ``a`` and ``h`` IN PLACE (the caller
+    passes copies): forward, h_t = a_t * h_{t-1} + h_t; with ``reverse``,
+    h_t = a_t * h_{t+1} + h_t, the same rounds on the flipped sequence."""
     S, d = a.shape[1], 1
     while d < S:
-        h[:, d:] = torch.addcmul(h[:, d:], a[:, d:], h[:, :-d])
-        a[:, d:] = a[:, d:] * a[:, :-d]
+        if reverse:
+            h[:, :-d] = torch.addcmul(h[:, :-d], a[:, :-d], h[:, d:])
+            a[:, :-d] = a[:, :-d] * a[:, d:]
+        else:
+            h[:, d:] = torch.addcmul(h[:, d:], a[:, d:], h[:, :-d])
+            a[:, d:] = a[:, d:] * a[:, :-d]
         d *= 2
     return h
+
+
+class _SsmScan(torch.autograd.Function):
+    """The scan with its adjoint, itself a linear scan run backwards over
+    time: g_t = dh_t + a_{t+1} g_{t+1}, d bx_t = g_t, d a_t = g_t h_{t-1}
+    (h_{-1} = 0). Saves ``a`` and ``h`` only, O(B S DI N) a layer, as JAX's
+    differentiated ``associative_scan``; autograd through the rounds would
+    keep a copy of the state per round."""
+
+    @staticmethod
+    def forward(ctx, a, bx):
+        h = _scan(a.clone(), bx.clone())
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        coef = torch.zeros_like(a)
+        coef[:, :-1] = a[:, 1:]
+        g = _scan(coef, dh.clone(), reverse=True)
+        da = torch.zeros_like(g)
+        da[:, 1:] = g[:, 1:] * h[:, :-1]
+        return da, g
+
+
+def ssm_scan(a: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + bx_t along axis 1 (h_{-1} = 0), as a
+    Hillis-Steele scan of the pairs (a, bx) under JAX's ``combine``;
+    differentiable in both (:class:`_SsmScan`)."""
+    return _SsmScan.apply(a, bx)
 
 
 def _gates(p: Mamba, cfg: ModelConfig, u: torch.Tensor):

@@ -96,15 +96,27 @@ def apply_updates(c: AdamWConfig, params, grads: dict, st: OptState):
     sf = step.to(torch.float32)
     b1c = 1 - torch.pow(torch.tensor(c.b1, dtype=torch.float32, device=sf.device), sf)
     b2c = 1 - torch.pow(torch.tensor(c.b2, dtype=torch.float32, device=sf.device), sf)
+    f32 = torch.float32
     for name, p in ps.items():
+        # The same products and sums in the same order as JAX's formula, so
+        # the same bits; float32 state updates in place, which holds a
+        # tensor's float32 temporaries to about two of its size (the
+        # out-of-place form held six of an embedding table at once).
         m, v = st.m[name], st.v[name]
-        g = grads[name].to(torch.float32) * scale
-        m32 = m.to(torch.float32) * c.b1 + g * (1 - c.b1)
-        v32 = v.to(torch.float32) * c.b2 + g * g * (1 - c.b2)
-        u = (m32 / b1c) / (torch.sqrt(v32 / b2c) + c.eps)
+        g = grads[name].to(f32) * scale
+        m32 = m.mul_(c.b1) if m.dtype == f32 else m.to(f32) * c.b1
+        m32.add_(g * (1 - c.b1))
+        v32 = v.mul_(c.b2) if v.dtype == f32 else v.to(f32) * c.b2
+        v32.add_(g.mul_(g).mul_(1 - c.b2))
+        del g
+        u = (m32 / b1c).div_((v32 / b2c).sqrt_().add_(c.eps))
         if decays(name, p):
-            u = u + c.weight_decay * p.to(torch.float32)
-        p.copy_(p.to(torch.float32) - lr * u)
-        m.copy_(m32)
-        v.copy_(v32)
+            u.add_(c.weight_decay * p.to(f32))
+        if p.dtype == f32:
+            p.sub_(lr * u)
+        else:
+            p.copy_(p.to(f32) - lr * u)
+        if m32 is not m:
+            m.copy_(m32)
+            v.copy_(v32)
     return params, OptState(step, st.m, st.v), {"grad_norm": gnorm, "lr": lr}

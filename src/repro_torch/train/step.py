@@ -20,6 +20,14 @@ from repro_torch.models.config import ModelConfig
 from .optimizer import AdamWConfig, OptState, apply_updates
 
 
+def loss_and_grads(params, cfg: ModelConfig, batch: dict, remat: str = "none"):
+    """One step's loss (detached) and ``{parameter name: gradient}`` of
+    ``loss_fn`` on ``batch``."""
+    names, ps = zip(*params.named_parameters())
+    loss, _ = loss_fn(params, cfg, batch, remat=remat)
+    return loss.detach(), dict(zip(names, torch.autograd.grad(loss, ps)))
+
+
 def make_train_step(cfg: ModelConfig, oc: AdamWConfig, remat: str = "dots",
                     microbatches: int = 1, grad_dtype: str = "float32"):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt,
@@ -30,15 +38,10 @@ def make_train_step(cfg: ModelConfig, oc: AdamWConfig, remat: str = "dots",
     ``grad_norm``, ``lr`` (float32 tensors)."""
     gdt = torch.bfloat16 if grad_dtype == "bfloat16" else torch.float32
 
-    def grads_of(params, batch):
-        names, ps = zip(*params.named_parameters())
-        loss, _ = loss_fn(params, cfg, batch, remat=remat)
-        return loss.detach(), dict(zip(names, torch.autograd.grad(loss, ps)))
-
     def train_step(params, opt_state: OptState, batch: dict):
         batch = {k: to_device(v, params.device) for k, v in batch.items()}
         if microbatches == 1:
-            loss, grads = grads_of(params, batch)
+            loss, grads = loss_and_grads(params, cfg, batch, remat)
         else:
             B = next(iter(batch.values())).shape[0]
             if B % microbatches:
@@ -48,7 +51,8 @@ def make_train_step(cfg: ModelConfig, oc: AdamWConfig, remat: str = "dots",
                     for k, p in params.named_parameters()}
             lsum = torch.zeros((), dtype=torch.float32, device=params.device)
             for i in range(microbatches):
-                l, g = grads_of(params, {k: v[i * n:(i + 1) * n] for k, v in batch.items()})
+                micro = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                l, g = loss_and_grads(params, cfg, micro, remat)
                 for k in gsum:
                     gsum[k] = gsum[k] + g[k].to(gdt)
                 lsum = lsum + l

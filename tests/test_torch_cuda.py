@@ -19,7 +19,10 @@ bitwise repeatable, with every instance on the tensor cores (HGMMA in the
 library's SASS, bf16 and float32 alike); the descent of a forest of
 2^30 + 1 intervals (the six-array body) against its plain version; the
 multi-row forest and the 2-D map's drains (the one-class drain under
-``set_sync_debug_mode("error")``) against their plain versions.
+``set_sync_debug_mode("error")``) against their plain versions; the Mamba
+scan's backward against autograd through an out-of-place scan, and a
+train step of a reduced MoE and a reduced Jamba repeated bitwise under
+deterministic algorithms.
 """
 from pathlib import Path
 
@@ -960,6 +963,76 @@ def test_trainer_steps_on_card(cuda, tmp_path):
     assert all(np.isfinite(m["loss"]) for m in out["metrics"])
     assert int(out["opt"].step) == 2 and latest_step(tmp_path) == 2
     assert all(p.dtype == torch.float32 and p.is_cuda for p in out["params"].parameters())
+
+
+def _outofplace_scan(a, bx):
+    """The Mamba scan's rounds out of place, which autograd differentiates
+    round by round."""
+    n, d, h = a.shape[1], 1, bx
+    while d < n:
+        h = torch.cat([h[:, :d], h[:, d:] + a[:, d:] * h[:, :-d]], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    return h
+
+
+def test_ssm_scan_backward_on_card(cuda):
+    """``ssm_scan``'s adjoint scan against autograd through the out-of-place
+    scan on the same card tensors, float32: rtol 1e-5, atol 1e-6 of the
+    largest entry (on the CPU at this shape both stay within 2.3e-7 of it
+    from float64)."""
+    from repro_torch.models.ssm import ssm_scan
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    shape = (2, 300, 64, 16)
+    a = torch.rand(shape, generator=g, device=cuda) * 0.5 + 0.5
+    bx = torch.randn(shape, generator=g, device=cuda)
+    dh = torch.randn(shape, generator=g, device=cuda)
+    got = torch.autograd.grad(ssm_scan(a.requires_grad_(), bx.requires_grad_()), (a, bx), dh)
+    want = torch.autograd.grad(_outofplace_scan(a, bx), (a, bx), dh)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6 * float(y.abs().max()))
+
+
+@pytest.mark.parametrize("arch,over", [("kimi_k2_1t_a32b", {"n_layers": 1}),
+                                       ("jamba_1_5_large_398b", {})])
+def test_train_step_repeats_bitwise_on_card(cuda, arch, over):
+    """One train step of a reduced MoE config (one layer) and of reduced
+    Jamba (Mamba, attention and MoE) on the card, twice from the same
+    state under ``torch.use_deterministic_algorithms(True)``: loss and
+    every parameter and moment after the step bitwise equal. The MoE
+    dispatch scatters and gathers by index, whose backward accumulates."""
+    import dataclasses
+    import os
+
+    import repro_torch.configs as C
+    from repro_torch.data import make_batch
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, init_opt
+    from repro_torch.train.step import make_train_step
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = dataclasses.replace(C.get_reduced(arch), dtype="bfloat16", **over)
+    batch = make_batch(cfg, 0, 4, 64)
+    oc = AdamWConfig()
+    out = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for _ in range(2):
+            model = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda,
+                                param_dtype=torch.float32).requires_grad_(True)
+            model, opt, m = make_train_step(cfg, oc, remat="none")(model, init_opt(oc, model),
+                                                                   batch)
+            torch.cuda.synchronize()
+            out.append((m, model, opt))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (m0, p0, o0), (m1, p1, o1) = out
+    assert np.isfinite(float(m0["loss"]))
+    assert torch.equal(m0["loss"], m1["loss"]) and torch.equal(m0["grad_norm"], m1["grad_norm"])
+    for (n, a), b in zip(p0.named_parameters(), p1.parameters()):
+        assert torch.equal(a, b), n
+        assert torch.equal(o0.m[n], o1.m[n]) and torch.equal(o0.v[n], o1.v[n]), n
 
 
 # ------------------------------------------- wide forests and the 2-D map
