@@ -124,6 +124,24 @@ the ignored ``build/`` directory), then:
    share a step (its device ms from a replay of each family's mixture
    and batches under torch.profiler, the only launches of the port's
    kernels on this path);
+   9d. the dist_lm path (``dist_lm_path``) on a (1, 1) ``DeviceMesh`` over
+   the dist phase's single-rank nccl group: Qwen1.5-0.5B at full width,
+   each run against the unsharded model on the same inputs, bit for bit
+   (at world size 1 every spec sanitizes to ``Replicate``): 2 train steps
+   (8 x 256, float32 masters, bf16 compute, deterministic algorithms) of
+   a model distributed by ``Policy.recommended(cfg, mesh, "train")`` on a
+   ``MixtureSampler``'s batches (built twice, so a late profiler window
+   keeps the second build's records), then 3 timed and one profiled step
+   each; the compressed pod all-reduce of one step's gradients; the flash
+   eval forward (2 x 2048, B10 through ``dist.local``) under
+   ``Policy.for_mesh`` with gather and sequence hints; 4
+   ``make_serve_step`` steps (B3, B9) over 16 rows on a
+   ``cache_spec_tree``-placed cache under the decode preset; ms a step,
+   launches and idle share sharded beside unsharded, the peak; then,
+   outside the path's counts (``dist_lm_checks``), a Trainer checkpoint
+   saved unsharded at step 2 restored into a sharded Trainer
+   (``restore(shardings=)``) and its next step, bit for bit, and B10 on a
+   rank's local query heads at a head offset against its plain version;
    3b. the dist phase (``dist_path``) on a single-rank nccl group: the
    same weights through ``build_cdf_sharded`` and ``build_forest_sharded``,
    the 2^24 uniforms through ``sample_sharded`` routed and with the
@@ -141,13 +159,15 @@ the ignored ``build/`` directory), then:
    (Qwen1.5-0.5B, 16 slots, KV cache) saved mid-flight through disk, their
    next drains and tokens equal to the originals';
 10. prints the kernels line (launch counts from the runs of steps 3, 3b, 4,
-   5, 6, 7b, 8, 9's eval and train paths, 9b and 9c, each with every count
+   5, 6, 7b, 8, 9's eval and train paths, 9b, 9c and 9d, each with every count
    set to 0 just before it; each kernel's launches and summed device time
-   on each of the eleven paths, main, dist, paper, map2d, pool, robust,
-   serve, eval, train, families and families_train: the time
+   on each of the twelve paths, main, dist, paper, map2d, pool, robust,
+   serve, eval, train, families, families_train and dist_lm: the time
    from torch.profiler, CUDA activity only, by the kernels' symbols, around
-   a second counted run of each path (of families_train, a replay of its
-   mixtures and batches) at the end, printed with the device records
+   a second counted run of each path (of train and families_train, a
+   replay of their mixtures and batches; of dist_lm, the path without its
+   train steps: those steps launch none of the port's kernels) at the
+   end, printed with the device records
    beside the launches, so the first runs' times carry no tracing cost; ``cdf_scan``
    also carries its decode-shape times as ``at_decode``, B6 and B8 their
    drain-shape times as ``at_drain``, B9 its shapes and the launch floor as
@@ -501,7 +521,7 @@ KERNEL_SYMBOLS = {
     "flash_attention": ("flash_attention_f32_tf32x3", "flash_attention_bf16_wgmma"),
 }
 PATHS = ("main", "dist", "paper", "map2d", "pool", "robust", "serve", "eval", "train",
-         "families", "families_train")
+         "families", "families_train", "dist_lm")
 
 
 def kernel_of(key: str):
@@ -2508,6 +2528,21 @@ def train_path(device, cfg, ckpt_root: Path, B=TRAIN_B, S=TRAIN_S, steps=TRAIN_S
     return dict(trainer=first, out=a)
 
 
+def train_replay(device, cfg, B=TRAIN_B, S=TRAIN_S, steps=TRAIN_STEPS) -> None:
+    """The train path's launches of the port's kernels again, for their
+    device time: the three Trainers' MixtureSamplers (B3, B2, B1's pack)
+    and their batches (B1: steps 0..steps-1 of the first run, 0 and 1 of
+    the run killed at step 2, 2..steps-1 of the resumed one). The
+    Trainers' steps and checkpoints launch none of the port's kernels, and
+    rerunning them (two 5.6 GB checkpoints) would cost the smoke ~45 s."""
+    from repro_torch.data import MixtureSampler, make_batch
+
+    for run in (range(steps), range(2), range(2, steps)):
+        mixture = MixtureSampler(MIXTURE, seed=0, device=device)
+        for step in run:
+            make_batch(cfg, step, B, S, mixture=mixture, seed=0)
+
+
 def train_timing(rec: dict, cfg, device, B=TRAIN_B, S=TRAIN_S) -> None:
     """ms per train step (host clock around synchronized steps, median of
     3, after the run's own steps) and the device busy share of one more."""
@@ -3195,6 +3230,272 @@ def whisper_resume(device, ckpt_root: Path) -> None:
     free_cuda()
 
 
+# ---------------------------------------------------------------------------
+# The dist_lm phase: the LM stack's dist layer (DTensor parameters placed by
+# a sharding policy, the hints, the pod all-reduce, sharded restore) on a
+# (1, 1) DeviceMesh over the single-rank nccl group of the dist phase.
+# ---------------------------------------------------------------------------
+
+DIST_LM_STEPS = 2            # train steps, sharded and unsharded, held bitwise
+DIST_LM_ROWS = 16            # decode rows (cache_spec_tree's cache)
+DIST_LM_PROMPT = 32          # prompt tokens before the decode steps
+DIST_LM_DECODE = 4           # decode steps through make_serve_step
+
+
+def dist_lm_train(device, cfg, mesh, batches, gen, B, S):
+    """The dist_lm path's train steps under ``Policy.recommended(cfg,
+    mesh, "train")`` against unsharded, bitwise, timed and profiled; then
+    one step's gradients through the compressed pod all-reduce."""
+    from repro_torch.dist import compression as Q
+    from repro_torch.dist import sharding as TS
+    from repro_torch.dist.local import whole
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, init_opt
+    from repro_torch.train.step import loss_and_grads, make_train_step
+
+    pol = TS.Policy.recommended(cfg, mesh, "train")
+    oc = AdamWConfig(total_steps=100, warmup_steps=5)
+    step = make_train_step(cfg, oc, remat="none")
+
+    def master():
+        return init_params(cfg, gen(0), device, param_dtype=torch.float32).requires_grad_()
+
+    plain, sh = master(), TS.distribute_params(master(), mesh, pol)
+    po, so = init_opt(oc, plain), init_opt(oc, sh)
+    times = {"unsharded": [], "sharded": []}
+    losses = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for i in range(DIST_LM_STEPS):
+            outs = []
+            for name, p, o in (("unsharded", plain, po), ("sharded", sh, so)):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                _, _, m = step(p, o, batches[i])
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t) * 1e3)
+                outs.append(m)
+            for k in ("loss", "grad_norm", "lr"):
+                check(torch.equal(outs[0][k], outs[1][k]), f"dist_lm step {i} {k} bitwise")
+            losses.append(float(outs[0]["loss"]))
+        check(all(torch.equal(whole(b), a) for a, b in zip(plain.parameters(), sh.parameters())),
+              "dist_lm: every parameter after the steps bitwise")
+        check(all(torch.equal(whole(so.m[k]), po.m[k]) and torch.equal(whole(so.v[k]), po.v[k])
+                  for k in po.m), "dist_lm: every AdamW moment bitwise")
+        for name, p, o in (("unsharded", plain, po), ("sharded", sh, so)):
+            for i in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                step(p, o, batches[DIST_LM_STEPS + i])
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t) * 1e3)
+        prof = {name: profile_one(f"dist_lm train step {name} ({B} x {S})",
+                                  lambda p=p, o=o: step(p, o, batches[-1]))
+                for name, p, o in (("unsharded", plain, po), ("sharded", sh, so))}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    train_peak = torch.cuda.max_memory_allocated()
+    ms = {k: statistics.median(v[DIST_LM_STEPS:]) for k, v in times.items()}
+    print(f"dist_lm train: {cfg.name} on a (1, 1) mesh, {pol}, {B} x {S}, float32 masters, "
+          f"{cfg.dtype} compute: {DIST_LM_STEPS} steps bitwise equal to unsharded (losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)}, every parameter and moment); ms a step "
+          f"(median of 3 after them, host clock, synchronized) unsharded {ms['unsharded']:.3f}, "
+          f"sharded {ms['sharded']:.3f} (DTensor dispatch {ms['sharded'] - ms['unsharded']:.3f} "
+          f"ms, x{ms['sharded'] / ms['unsharded']:.2f}); launches / idle share a step "
+          + ", ".join(f"{k} {v.get('launches', 'not measured')} / "
+                      f"{v['idle']:.3f}" if v else f"{k} not measured"
+                      for k, v in prof.items())
+          + f"; peak {train_peak / 2**30:.3f} GiB", flush=True)
+
+    # the step's gradients through the pod all-reduce, compressed
+    _, grads = loss_and_grads(sh, cfg, batches[0])
+    reduce = Q.make_pod_allreduce(compress=True)
+    worst, n = 0.0, 0
+    for g in grads.values():
+        g = g.to_local()
+        q, s = Q.quantize_int8(g)
+        check(torch.equal(reduce(g), Q.dequantize_int8(q, s)),
+              "compressed all-reduce at world size 1 == dequantize(quantize(g))")
+        deq, res = Q.compress_grads_with_feedback(g, None)
+        deq2, res2 = Q.compress_grads_with_feedback(g, res)
+        worst = max(worst, float((deq + res - g).abs().max()),
+                    float((deq2 + res2 - (g + res)).abs().max()))
+        n += g.numel()
+    check(worst <= 1e-9, f"error feedback conserves the gradient ({worst})")
+    print(f"dist_lm compression: {len(grads)} gradients, {n} values: the shared-scale int8 "
+          f"all-reduce == dequantize(quantize(g)) bitwise; error feedback conserved to "
+          f"{worst:.3e} (bound 1e-9)", flush=True)
+    del plain, sh, po, so, grads
+    free_cuda()
+
+
+def dist_lm_path(device, cfg, mesh, B=TRAIN_B, S=TRAIN_S, replay=False) -> dict:
+    """Qwen1.5-0.5B at full width under three policies of the (1, 1) mesh,
+    each against the unsharded model on the same inputs, bit for bit (at
+    world size 1 every spec sanitizes to Replicate, so the local ops are
+    the unsharded ops): ``DIST_LM_STEPS`` train steps under
+    ``Policy.recommended(cfg, mesh, "train")`` on the MixtureSampler's
+    batches (float32 masters, bf16 compute, deterministic algorithms); the
+    flash eval forward (B10 through the local-heads wrapper) under
+    ``Policy.for_mesh`` with ``Hints(gather_weights=True, seq_shard=True)``;
+    ``DIST_LM_DECODE`` decode steps through ``make_serve_step`` (B3, B9) on
+    a ``cache_spec_tree``-placed cache under the decode preset; the
+    compressed pod all-reduce of one step's gradients. Prints ms a step,
+    launches and idle share sharded beside unsharded, and the peak.
+    ``replay`` (the profiled rerun) leaves out the train steps and the
+    all-reduce, which launch none of the port's kernels."""
+    import dataclasses
+
+    from repro_torch.data import MixtureSampler, make_batch
+    from repro_torch.dist import hints as H
+    from repro_torch.dist import sharding as TS
+    from repro_torch.dist.local import whole
+    from repro_torch.models import forward, init_params, prefill
+    from repro_torch.train.step import make_serve_step
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the mixture built twice: late in the process a profiler window drops its
+    # first forest build's records (PERF.md section 7); the second is whole
+    MixtureSampler(MIXTURE, seed=0, device=device)
+    mixture = MixtureSampler(MIXTURE, seed=0, device=device)
+    batches = [make_batch(cfg, s, B, S, mixture=mixture) for s in range(DIST_LM_STEPS + 4)]
+    if not replay:
+        dist_lm_train(device, cfg, mesh, batches, gen, B, S)
+
+    # the hinted flash eval forward, for_mesh + gather/seq hints
+    flash = dataclasses.replace(cfg, attn_impl="flash")
+    ev = init_params(cfg, gen(0), device)
+    pol_f = TS.Policy.for_mesh(mesh)
+    ed = TS.distribute_params(init_params(cfg, gen(0), device), mesh, pol_f)
+    batch = make_batch(cfg, 0, EVAL_B, EVAL_S, mixture=mixture)
+    hints = H.Hints(pol_f, gather_weights=True, seq_shard=True)
+    eval_ms = {}
+    with torch.no_grad():
+        for name, model, ctx in (("unsharded", ev, contextlib.nullcontext()),
+                                 ("hinted", ed, H.sharding_hints(hints))):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with ctx:
+                out = forward(model, flash, batch)[0]
+            torch.cuda.synchronize()
+            eval_ms[name] = ((time.perf_counter() - t) * 1e3, out)
+    check(torch.equal(whole(eval_ms["hinted"][1]), eval_ms["unsharded"][1]),
+          "dist_lm: hinted flash eval forward bitwise")
+    print(f"dist_lm eval: flash forward {EVAL_B} x {EVAL_S} under {pol_f} with {hints}: logits "
+          f"bitwise equal to unsharded; ms (host clock, synchronized, one call) unsharded "
+          f"{eval_ms['unsharded'][0]:.3f}, hinted {eval_ms['hinted'][0]:.3f}", flush=True)
+    del ed, eval_ms, batch
+
+    # decode steps on a cache placed by cache_spec_tree, decode preset
+    pol_d = TS.Policy.recommended(cfg, mesh, "decode")
+    dd = TS.distribute_params(init_params(cfg, gen(0), device), mesh, pol_d)
+    tok = torch.randint(0, cfg.vocab, (DIST_LM_ROWS, DIST_LM_PROMPT), generator=gen(3),
+                        device=device)
+    logits, cache, _ = prefill(ev, cfg, {"tokens": tok}, max_seq=DIST_LM_PROMPT + 16)
+    dcache = TS.distribute_cache(cfg, {b: {k: t.clone() for k, t in c.items()}
+                                       for b, c in cache.items()}, mesh, pol_d)
+    serve = make_serve_step(cfg)
+    nxt, pos = logits.argmax(-1), torch.full((DIST_LM_ROWS,), DIST_LM_PROMPT, device=device)
+    xgen, dec_ms = gen(4), {"unsharded": 0.0, "sharded": 0.0}
+    for _ in range(DIST_LM_DECODE):
+        xi = torch.rand(DIST_LM_ROWS, generator=xgen, device=device)
+        got = {}
+        for name, p, c in (("unsharded", ev, cache), ("sharded", dd, dcache)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got[name], _ = serve(p, c, nxt, pos, xi)
+            torch.cuda.synchronize()
+            dec_ms[name] += (time.perf_counter() - t) * 1e3 / DIST_LM_DECODE
+        check(torch.equal(got["sharded"], got["unsharded"]), "dist_lm: decode tokens equal")
+        nxt, pos = got["unsharded"], pos + 1
+    check(all(torch.equal(whole(dcache[b][k]), t) for b, c in cache.items() for k, t in c.items()),
+          "dist_lm: the placed cache bitwise equal after the decode steps")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"dist_lm decode: {DIST_LM_DECODE} make_serve_step steps over {DIST_LM_ROWS} rows "
+          f"(prompt {DIST_LM_PROMPT}) under {pol_d}, cache placed by cache_spec_tree: tokens and "
+          f"cache bitwise equal to unsharded; ms a step (host clock) unsharded "
+          f"{dec_ms['unsharded']:.3f}, sharded {dec_ms['sharded']:.3f}; path peak "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    del ev, dd, cache, dcache
+    free_cuda()
+
+
+def dist_lm_checks(device, cfg, mesh, ckpt_root: Path, B=TRAIN_B, S=TRAIN_S) -> None:
+    """Outside the counted path: the trainer's checkpoint, saved unsharded
+    at step 2, restored into a sharded Trainer (``restore(shardings=)``)
+    bitwise and resumed one step bitwise; and B10 on local query heads at
+    a nonzero head offset against its plain version on the same heads."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.data import make_batch
+    from repro_torch.dist import sharding as TS
+    from repro_torch.dist.local import _kv_heads, whole
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import ref_flash_attention
+    from repro_torch.train import TrainConfig, Trainer
+
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    tc = TrainConfig(steps=2, global_batch=B, seq_len=S, ckpt_dir=str(ckpt_root), ckpt_every=2,
+                     keep=1, log_every=1)
+    pol = TS.Policy.recommended(cfg, mesh, "train")
+    torch.use_deterministic_algorithms(True)
+    try:
+        a = Trainer(cfg, tc, log_fn=lambda s: None, device=device).run()
+        tr = Trainer(cfg, dataclasses.replace(tc, steps=3), log_fn=lambda s: None, device=device,
+                     mesh=mesh, policy=pol)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt = tr.init_state()
+        opt = tr._restore(params, opt)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        check(int(opt.step) == 2, "dist_lm: restored at step 2")
+        check(all(torch.equal(whole(q), p) for p, q in zip(a["params"].parameters(),
+                                                           params.parameters())),
+              "dist_lm: restored sharded parameters bitwise")
+        check(all(torch.equal(whole(opt.m[k]), a["opt"].m[k])
+                  and torch.equal(whole(opt.v[k]), a["opt"].v[k]) for k in opt.m),
+              "dist_lm: restored sharded moments bitwise")
+        batch = make_batch(cfg, 2, B, S, mixture=tr.mixture)
+        _, _, m1 = tr.step_fn(a["params"], a["opt"], batch)
+        _, _, m2 = tr.step_fn(params, opt, batch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(torch.equal(m1["loss"], m2["loss"]) and torch.equal(m1["grad_norm"], m2["grad_norm"]),
+          "dist_lm: resumed sharded step bitwise")
+    check(all(torch.equal(whole(q), p) for p, q in zip(a["params"].parameters(),
+                                                       params.parameters())),
+          "dist_lm: resumed sharded parameters bitwise")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    print(f"dist_lm restore: the Trainer's checkpoint saved unsharded at step 2, restored "
+          f"into a sharded Trainer under {pol} (restore(shardings=), {restore_s:.3f} s with "
+          f"init) bitwise, and its step 3 bitwise (loss {float(m2['loss']):.6f})", flush=True)
+    del a, tr, params, opt
+    free_cuda()
+
+    # B10 on a rank's local query heads at a nonzero head offset
+    g = torch.Generator(device=device).manual_seed(5)
+    for H_, KV, h0, Hl in ((16, 4, 6, 4), (16, 4, 8, 8), (16, 16, 4, 4)):
+        q = torch.randn(1, 512, H_, 64, generator=g, device=device).to(torch.bfloat16)
+        k = torch.randn(1, 512, KV, 64, generator=g, device=device).to(torch.bfloat16)
+        v = torch.randn(1, 512, KV, 64, generator=g, device=device).to(torch.bfloat16)
+        kl, vl = _kv_heads(k, h0, Hl, H_ // KV), _kv_heads(v, h0, Hl, H_ // KV)
+        got = flash_attention(q[:, :, h0:h0 + Hl], kl, vl, causal=True)
+        want = ref_flash_attention(q, k, v, causal=True)[:, :, h0:h0 + Hl]
+        err = float((got.float() - want.float()).abs().max())
+        check(err <= FLASH_TOL[torch.bfloat16],
+              f"B10 on local heads {h0}..{h0 + Hl} of {H_} over {KV} KV heads: {err}")
+        print(f"dist_lm B10 local heads: heads {h0}..{h0 + Hl - 1} of {H_} over {KV} KV heads "
+              f"(KV {'sliced' if kl.shape[2] * (H_ // KV) == Hl else 'picked a head'}), "
+              f"max |err| {err:.3e} against the plain version on the same heads "
+              f"(tol {FLASH_TOL[torch.bfloat16]})", flush=True)
+
+
 def run(build_s: float) -> dict:
     """The whole smoke run on the card (``build_s``: the kernel library's
     build time); returns the kernels record."""
@@ -3212,6 +3513,7 @@ def run(build_s: float) -> dict:
         forest_sample_batched_streams,
     )
     from repro_torch.kernels.sample_tiled import sample_rows
+    from repro_torch.launch.mesh import make_host_mesh
 
     device = torch.device("cuda")
     weights = env_map_2d(SIDE, SIDE, seed=0).reshape(-1).astype(np.float32)
@@ -3360,9 +3662,18 @@ def run(build_s: float) -> dict:
               f"{name} launched by the families' training mixtures")
     check(counts["families_train"]["flash_attention"] == 0, "training runs einsum attention")
     whisper_resume(device, ckpt_root)
+    mesh = make_host_mesh(1, 1, device=device)
+    counted("dist_lm", dist_lm_path, device, tcfg, mesh)
+    for name in ("cdf_scan", "forest_delta", "forest_sample", "forest_pack", "sample_rows",
+                 "flash_attention"):
+        check(counts["dist_lm"][name] > 0, f"{name} launched on the dist_lm path")
+    check(counts["dist_lm"]["flash_attention"] == 2 * tcfg.n_layers,
+          "B10 once per layer of each eval forward, unsharded and hinted")
+    dist_lm_checks(device, tcfg, mesh, ckpt_root)
 
     profiled("main", main_path, device, weights, m, n_draws, gen)
     profiled("dist", dist_path, device, weights, m, n_draws, gen)
+    profiled("dist_lm", dist_lm_path, device, tcfg, mesh, replay=True)
     dist.destroy_process_group()
     profiled("paper", paper_path, device)
     profiled("map2d", map2d_path, device)
@@ -3371,7 +3682,7 @@ def run(build_s: float) -> dict:
     del rec
     profiled("serve", serve_path, device, cfg)
     profiled("eval", eval_path, device, tcfg)
-    profiled("train", train_path, device, tcfg, ckpt_root)
+    profiled("train", train_replay, device, tcfg)
     _, path_ms["families"] = families_traced(device, counts["families"])
     profiled("families_train", families_train_replay, device)
 

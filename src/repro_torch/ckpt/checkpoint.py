@@ -152,12 +152,18 @@ def latest_step(path: str | os.PathLike) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(path: str | os.PathLike, like: Any, step: int | None = None) -> tuple[Any, int]:
+def restore(path: str | os.PathLike, like: Any, step: int | None = None,
+            shardings: Any = None) -> tuple[Any, int]:
     """Restore into the structure of ``like``: each tensor leaf comes back
     as a tensor on that leaf's device with its dtype (shapes must match;
     a leaf on the ``meta`` device gives only shape and dtype, and comes
-    back on the CPU), each other leaf as a numpy array. Returns
-    ``(tree, step)``."""
+    back on the CPU), each other leaf as a numpy array. ``shardings``, a
+    tree of the same structure whose leaves are
+    ``dist.sharding.NamedSharding``s (or ``None``), re-shards for an
+    elastic mesh change, as JAX's ``device_put`` with a target sharding: a
+    leaf with one comes back as ``distribute_tensor(leaf, mesh,
+    placements)`` on the mesh's device (every rank reads the whole file
+    and keeps its shard). Returns ``(tree, step)``."""
     root = Path(path)
     if step is None:
         step = latest_step(root)
@@ -166,6 +172,7 @@ def restore(path: str | os.PathLike, like: Any, step: int | None = None) -> tupl
     d = root / f"step_{step:08d}"
     manifest = json.loads((d / _MANIFEST).read_text())
     by_key = {m["key"]: m for m in manifest["leaves"]}
+    target = dict(_flatten(shardings)) if shardings is not None else {}
     leaves = {}
     for key, leaf in _flatten(like):
         meta = by_key.get(key)
@@ -175,9 +182,14 @@ def restore(path: str | os.PathLike, like: Any, step: int | None = None) -> tupl
         expect = getattr(leaf, "shape", None)
         if expect is not None and tuple(arr.shape) != tuple(expect):
             raise ValueError(f"{key}: shape {tuple(arr.shape)} != expected {tuple(expect)}")
+        sh = target.get(key)
         if isinstance(leaf, torch.Tensor):
             dev = "cpu" if leaf.device.type == "meta" else leaf.device
             arr = torch.as_tensor(arr).to(device=dev, dtype=leaf.dtype)
+        if sh is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            arr = distribute_tensor(torch.as_tensor(arr), sh.mesh, list(sh.placements))
         leaves[key] = arr
     return _unflatten(like, leaves), step
 
@@ -328,5 +340,5 @@ class CheckpointManager:
             self._thread = None
         self._raise_pending()
 
-    def restore_latest(self, like: Any):
-        return restore(self.root, like, None)
+    def restore_latest(self, like: Any, shardings: Any = None):
+        return restore(self.root, like, None, shardings=shardings)

@@ -22,7 +22,9 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
+from repro_torch.dist.local import local_attention, local_decode_attention, replicate
 from repro_torch.kernels import ops
 
 from .config import ModelConfig
@@ -73,6 +75,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     and second halves of ``hd`` are the two coordinates of each pair."""
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)
+    if isinstance(positions, DTensor):   # a distributed model's positions
+        freqs = replicate(freqs, positions.device_mesh)
     ang = positions[..., None].to(torch.float32) * freqs          # (B, S, hd/2)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
@@ -102,6 +106,15 @@ def _sdpa(q, k, v, keep: torch.Tensor | None = None):
     w = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.matmul(w, v.permute(0, 2, 1, 3)[:, :, None])      # (B, KV, G, Sq, hd)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+
+
+def attend(core, q, k, v):
+    """``core(q, k, v)``; for DTensors (a distributed model) by local
+    shards (``dist.local.local_attention``: each rank its own rows and
+    query heads, with the KV heads those heads read)."""
+    if isinstance(q, DTensor):
+        return local_attention(core, q, k, v)
+    return core(q, k, v)
 
 
 class Attention(nn.Module):
@@ -156,11 +169,14 @@ class Attention(nn.Module):
         B10 (``kernels.ops.flash_attention``), as JAX ``layers.attention``."""
         q, k, v = self.qkv(x, positions)
         if (attn_impl or self.cfg.attn_impl) == "flash":
-            o = ops.flash_attention(q, k, v, causal=causal)
+            def core(q, k, v):
+                return ops.flash_attention(q, k, v, causal=causal)
         else:
             keep = causal_keep(q.shape[1], k.shape[1], x.device) if causal else None
-            o = _sdpa(q, k, v, keep)
-        return self.out(o)
+
+            def core(q, k, v):
+                return _sdpa(q, k, v, keep)
+        return self.out(attend(core, q, k, v))
 
     def decode(self, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                pos: torch.Tensor) -> torch.Tensor:
@@ -168,12 +184,29 @@ class Attention(nn.Module):
         (B, S, KV, hd) cache views, written IN PLACE at ``(row, pos[row])``;
         pos (B,) int64. Row ``b`` attends to keys ``0..pos[b]``."""
         B = x.shape[0]
+        if isinstance(x, DTensor):
+            q, k, v = self.qkv(x, replicate(pos[:, None], x.device_mesh))
+            return self.out(self._decode_local(q, k, v, ck, cv, pos))
         q, k, v = self.qkv(x, pos[:, None])
         rows = torch.arange(B, device=x.device)
         ck[rows, pos] = k[:, 0].to(ck.dtype)
         cv[rows, pos] = v[:, 0].to(cv.dtype)
         keep = torch.arange(ck.shape[1], device=x.device)[None] <= pos[:, None]
         return self.out(_sdpa(q, ck, cv, keep[:, None, None, None, :]))
+
+    @staticmethod
+    def _decode_local(q, k, v, ck, cv, pos):
+        """The decode attention of a distributed model by local shards
+        (``dist.local.local_decode_attention``); a plain cache is taken as
+        replicated."""
+        if not isinstance(ck, DTensor):
+            ck, cv = replicate(ck, q.device_mesh), replicate(cv, q.device_mesh)
+
+        def core(ql, kh, vh, pl):
+            keep = torch.arange(kh.shape[1], device=ql.device)[None] <= pl[:, None]
+            return _sdpa(ql, kh, vh, keep[:, None, None, None, :])
+
+        return local_decode_attention(core, q, k, v, ck, cv, pos)
 
 
 def encoder_kv(p: Attention, cfg: ModelConfig, enc_out: torch.Tensor):
@@ -198,7 +231,7 @@ def cross_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, enc_kv) -> 
     if cfg.qk_norm:
         q = p.q_norm(q)
     k, v = enc_kv
-    return p.out(_sdpa(q, k.to(x.dtype), v.to(x.dtype)))
+    return p.out(attend(_sdpa, q, k.to(x.dtype), v.to(x.dtype)))
 
 
 class MLP(nn.Module):

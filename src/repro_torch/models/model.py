@@ -37,6 +37,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -44,12 +45,25 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.device import resolve, to_device
+from repro_torch.dist import hints as H
+from repro_torch.dist import local as L
+from repro_torch.dist.sharding import place_batch
 
 from . import moe as M
 from . import ssm as S
 from . import xlstm as X
 from .config import ModelConfig
-from .layers import MLP, Attention, RMSNorm, _dtype, _sdpa, causal_keep, cross_attention, encoder_kv
+from .layers import (
+    MLP,
+    Attention,
+    RMSNorm,
+    _dtype,
+    _sdpa,
+    attend,
+    causal_keep,
+    cross_attention,
+    encoder_kv,
+)
 
 BLOCKS = {"attn": Attention, "mamba": S.Mamba, "mlstm": X.MLSTM, "slstm": X.SLSTM}
 MLPS = ("dense", "moe", "none")
@@ -130,13 +144,15 @@ class Period(nn.Module):
         ``cfg`` is the caller's, which picks causality and ``attn_impl``.
         Returns (x, the period's summed MoE aux loss, float32)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i, kind in enumerate(self.kinds):
-            b, h = self.sub("b", i), self.sub("ln_b", i)(x)
+        pp = H.gather_params(self)   # ZeRO-3 gather-on-use (no-op without hints)
+        x = H.act_seq(x)             # sequence-sharded residual (no-op without hints)
+        for i, kind in enumerate(pp.kinds):
+            b, h = pp.sub("b", i), pp.sub("ln_b", i)(x)
             if kind == "attn":
                 y = b(h, pos, causal=cfg.causal, attn_impl=cfg.attn_impl)
             else:
                 y = _SEQUENCE[kind](b, cfg, h)
-            x, a = self.tail(i, x + y, cfg, enc_out)
+            x, a = pp.tail(i, x + y, cfg, enc_out)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -297,14 +313,26 @@ def _embed_in(params: LM, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     ``embed.astype(dtype)[tok]`` (so the gradient of the gather accumulates
     in the model dtype there and here)."""
     if cfg.frontend == "embed":
-        return to_device(batch["embeds"], params.device).to(_dtype(cfg))
-    tok = to_device(batch["tokens"], params.device).long()
-    return params.embed.to(_dtype(cfg))[tok]
+        x = to_device(batch["embeds"], params.device).to(_dtype(cfg))
+        return place_batch(params, x, "embeds")
+    tok = place_batch(params, to_device(batch["tokens"], params.device).long(), "tokens")
+    return L.embedding_table(params.embed).to(_dtype(cfg))[tok]
+
+
+def _pick(lg: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``lg[..., idx]`` elementwise (``take_along_dim`` on the last dim);
+    over DTensors by each rank's own rows (``dist.local.local_pick``)."""
+    if isinstance(lg, DTensor):
+        return L.local_pick(lg, idx)
+    return torch.take_along_dim(lg, idx[..., None], dim=-1)[..., 0]
 
 
 def _head(params: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = params.final_norm(x)
-    w = params.embed if cfg.tie_embeddings else params.lm_head
+    # a tied head keeps the embed rule (vocab over tp, D gathered); the
+    # port's head weight is (V, D) either way, so no transpose
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    w = H.gather_params({name: getattr(params, name)})[name]
     return F.linear(x, w.to(x.dtype))
 
 
@@ -312,10 +340,12 @@ def encode(params: LM, cfg: ModelConfig, frames) -> torch.Tensor:
     """The bidirectional encoder over frame embeddings (B, S_enc, D):
     non-causal self-attention with RoPE at the encoder's positions (through
     ``cfg.attn_impl``), dense MLPs, ``enc_norm`` (JAX ``encode``)."""
-    x = to_device(frames, params.device).to(_dtype(cfg))
+    x = place_batch(params, to_device(frames, params.device).to(_dtype(cfg)), "frames")
     B, Senc, _ = x.shape
-    pos = torch.arange(Senc, device=x.device)[None].expand(B, Senc)
+    pos = place_batch(params, torch.arange(Senc, device=x.device)[None].expand(B, Senc),
+                      "frames")
     for layer in params.encoder:
+        layer = H.gather_params(layer)
         x = x + layer.attn(layer.ln_a(x), pos, causal=False, attn_impl=cfg.attn_impl)
         x = x + layer.mlp(layer.ln_m(x))
     return params.enc_norm(x)
@@ -330,6 +360,20 @@ def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _under(hints, fn):
+    """``fn`` run under ``hints``: a remat period recomputed in the backward,
+    after the forward's ``sharding_hints`` block has closed, redistributes
+    as its forward did (JAX reads the hints once, when it traces)."""
+    if hints is None:
+        return fn
+
+    def call(*args):
+        with H.sharding_hints(hints):
+            return fn(*args)
+
+    return call
+
+
 def forward(params: LM, cfg: ModelConfig, batch: dict, remat: str = "none"):
     """Full-sequence logits (B, S, V) in the model dtype, and the auxiliary
     loss (float32: the MoE load-balance losses summed over layers and
@@ -340,7 +384,7 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, remat: str = "none"):
         raise ValueError(f"unknown remat {remat!r}")
     x = _embed_in(params, cfg, batch)
     B, Sq, _ = x.shape
-    pos = torch.arange(Sq, device=x.device)[None].expand(B, Sq)
+    pos = place_batch(params, torch.arange(Sq, device=x.device)[None].expand(B, Sq), "tokens")
     enc_out = encode(params, cfg, batch["frames"]) if cfg.encoder_layers else None
     ctx = {}
     if remat == "dots":
@@ -351,7 +395,8 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, remat: str = "none"):
         if remat == "none" or not torch.is_grad_enabled():
             x, a = period(x, pos, cfg, enc_out)
         else:
-            x, a = checkpoint(period, x, pos, cfg, enc_out, use_reentrant=False, **ctx)
+            x, a = checkpoint(_under(H.current_hints(), period), x, pos, cfg, enc_out,
+                              use_reentrant=False, **ctx)
         aux = aux + a
     return _head(params, cfg, x), aux
 
@@ -361,13 +406,13 @@ def loss_fn(params: LM, cfg: ModelConfig, batch: dict, remat: str = "none"):
     plus ``0.01 * aux``; returns ``(loss, {"nll", "aux"})`` as JAX's
     ``loss_fn``."""
     logits, aux = forward(params, cfg, batch, remat)
-    labels = to_device(batch["labels"], logits.device).long()
+    labels = place_batch(params, to_device(batch["labels"], logits.device).long(), "labels")
     lg = logits[:, :-1].to(torch.float32)
     tg = labels[:, 1:]
     lse = torch.logsumexp(lg, dim=-1)
     # masked labels (< 0) pick entry 0 here (JAX wraps them); either way the
     # mask zeroes the term
-    picked = torch.take_along_dim(lg, tg.clamp(min=0)[..., None], dim=-1)[..., 0]
+    picked = _pick(lg, tg.clamp(min=0))
     mask = (tg >= 0).to(torch.float32)
     nll = torch.sum((lse - picked) * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return nll + 0.01 * aux, {"nll": nll, "aux": aux}
@@ -385,24 +430,26 @@ def prefill(params: LM, cfg: ModelConfig, batch: dict, max_seq: int):
     under the embed frontend, and ``batch["frames"]`` for an encoder);
     return (last-position logits (B, V), a fresh decode cache holding the
     prompt's keys and values and each recurrent block's state after the
-    prompt, the encoder output or ``None``)."""
+    prompt, the encoder output or ``None``). A distributed model returns
+    a plain (whole) cache; ``dist.sharding.distribute_cache`` places it."""
     x = _embed_in(params, cfg, batch)
     B, Sq, _ = x.shape
     if Sq > max_seq:
         raise ValueError(f"prompt of {Sq} tokens exceeds max_seq={max_seq}")
-    pos = torch.arange(Sq, device=x.device)[None].expand(B, Sq)
+    pos = place_batch(params, torch.arange(Sq, device=x.device)[None].expand(B, Sq), "tokens")
     keep = causal_keep(Sq, Sq, x.device) if cfg.causal else None
     enc_out = encode(params, cfg, batch["frames"]) if cfg.encoder_layers else None
     cache = init_cache(cfg, B, max_seq, x.device)
     for p, period in enumerate(params.layers):
+        period = H.gather_params(period)
         for i, kind in enumerate(period.kinds):
             b, c = period.sub("b", i), cache[f"b{i}"]
             h = period.sub("ln_b", i)(x)
             if kind == "attn":
                 q, k, v = b.qkv(h, pos)
-                y = b.out(_sdpa(q, k, v, keep))
-                c["k"][p, :, :Sq] = k
-                c["v"][p, :, :Sq] = v
+                y = b.out(attend(lambda q, k, v: _sdpa(q, k, v, keep), q, k, v))
+                c["k"][p, :, :Sq] = L.whole(k)
+                c["v"][p, :, :Sq] = L.whole(v)
                 c["len"][p] = Sq
             else:
                 y, state = _PREFILL[kind](b, cfg, h)
@@ -417,7 +464,9 @@ def decode_step(params: LM, cfg: ModelConfig, cache: dict, token, pos, enc_out=N
     (B,) -> (logits (B, V), cache). Row ``b`` of an attention block writes
     its key and value at ``pos[b]`` (in place) and attends to
     ``0..pos[b]``; recurrent blocks step their state (in place);
-    cross-attention reads ``enc_out`` (the encoder output of ``prefill``)."""
+    cross-attention reads ``enc_out`` (the encoder output of ``prefill``).
+    With a distributed model the cache may be placed by
+    ``dist.sharding.distribute_cache``: each rank writes its own shard."""
     dev = params.device
     token = to_device(token, dev)
     pos = to_device(pos, dev).long()
@@ -426,6 +475,7 @@ def decode_step(params: LM, cfg: ModelConfig, cache: dict, token, pos, enc_out=N
     else:
         x = _embed_in(params, cfg, {"tokens": token.long()[:, None]})
     for p, period in enumerate(params.layers):
+        period = H.gather_params(period)
         for i, kind in enumerate(period.kinds):
             b, c = period.sub("b", i), cache[f"b{i}"]
             h = period.sub("ln_b", i)(x)

@@ -9,6 +9,13 @@ them), the parameter updated in float32 and stored back in its dtype. State
 is keyed by parameter name (``model.named_parameters()``). The JAX function
 returns new parameters and state; the port updates both IN PLACE (saving a
 copy of the parameters and moments per step) and returns them.
+
+Parameters may be DTensors (``dist.sharding.distribute_params``): the
+moments are made like them (``zeros_like``, so they shard as the
+parameters, as JAX's do), each gradient is first moved to its parameter's
+placements (a partial sum is reduced), the global norm is one replicated
+float32 scalar before the square root and the clip, and every in-place
+update keeps the parameter's placements.
 """
 from __future__ import annotations
 
@@ -17,6 +24,9 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.dist.local import whole
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,13 +84,22 @@ def init_opt(c: AdamWConfig, params) -> OptState:
     dev = next(iter(ps.values())).device
     return OptState(
         step=torch.zeros((), dtype=torch.int32, device=dev),
-        m={k: torch.zeros(p.shape, dtype=dt, device=p.device) for k, p in ps.items()},
-        v={k: torch.zeros(p.shape, dtype=dt, device=p.device) for k, p in ps.items()})
+        m={k: torch.zeros_like(p, dtype=dt) for k, p in ps.items()},
+        v={k: torch.zeros_like(p, dtype=dt) for k, p in ps.items()})
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor (float32)."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.to(torch.float32))) for t in tensors))
+    """sqrt of the sum of squares of every tensor (float32); over DTensors
+    the sum is made one replicated scalar before the square root."""
+    return torch.sqrt(whole(sum(torch.sum(torch.square(t.to(torch.float32)))
+                                     for t in tensors)))
+
+
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Gradient ``g`` at parameter ``p``'s placements."""
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 @torch.no_grad()
@@ -89,6 +108,7 @@ def apply_updates(c: AdamWConfig, params, grads: dict, st: OptState):
     ``grads`` (``{name: gradient}``); parameters and moments are updated in
     place. Returns ``(params, new state, {"grad_norm", "lr"})``."""
     ps = _params(params)
+    grads = {k: _placed_like(grads[k], p) for k, p in ps.items()}
     gnorm = global_norm(grads[k] for k in ps)
     scale = torch.clamp(c.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = st.step + 1

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import to_device
+from repro_torch.dist.local import whole
 from repro_torch.kernels import ops
 from repro_torch.models import decode_step as model_decode
 from repro_torch.models import loss_fn, prefill
@@ -22,10 +23,12 @@ from .optimizer import AdamWConfig, OptState, apply_updates
 
 def loss_and_grads(params, cfg: ModelConfig, batch: dict, remat: str = "none"):
     """One step's loss (detached) and ``{parameter name: gradient}`` of
-    ``loss_fn`` on ``batch``."""
+    ``loss_fn`` on ``batch``. For a distributed model (DTensor parameters)
+    the loss is a replicated plain tensor and each gradient a DTensor."""
     names, ps = zip(*params.named_parameters())
     loss, _ = loss_fn(params, cfg, batch, remat=remat)
-    return loss.detach(), dict(zip(names, torch.autograd.grad(loss, ps)))
+    grads = torch.autograd.grad(loss, ps)
+    return whole(loss.detach()), dict(zip(names, grads))
 
 
 def make_train_step(cfg: ModelConfig, oc: AdamWConfig, remat: str = "dots",
@@ -47,8 +50,7 @@ def make_train_step(cfg: ModelConfig, oc: AdamWConfig, remat: str = "dots",
             if B % microbatches:
                 raise ValueError(f"batch of {B} rows does not split into {microbatches}")
             n = B // microbatches
-            gsum = {k: torch.zeros(p.shape, dtype=gdt, device=p.device)
-                    for k, p in params.named_parameters()}
+            gsum = {k: torch.zeros_like(p, dtype=gdt) for k, p in params.named_parameters()}
             lsum = torch.zeros((), dtype=torch.float32, device=params.device)
             for i in range(microbatches):
                 micro = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
@@ -73,6 +75,7 @@ def make_serve_step(cfg: ModelConfig, temperature: float = 1.0):
     @torch.no_grad()
     def serve_step(params, cache, token, pos, xi, enc_out=None):
         logits, cache = model_decode(params, cfg, cache, token, pos, enc_out)
+        logits = whole(logits)   # the sampler's kernels take the whole rows
         cdf = ops.fused_cdf(logits / temperature, softmax=True)
         xi = to_device(xi, logits.device, torch.float32)
         return ops.sample_rows(cdf, xi[:, None])[:, 0], cache

@@ -22,7 +22,11 @@ multi-row forest and the 2-D map's drains (the one-class drain under
 ``set_sync_debug_mode("error")``) against their plain versions; the Mamba
 scan's backward against autograd through an out-of-place scan, and a
 train step of a reduced MoE and a reduced Jamba repeated bitwise under
-deterministic algorithms.
+deterministic algorithms; B10 on a rank's local query heads at a nonzero
+head offset; and the LM's dist layer on a (1, 1) mesh over a single-rank
+nccl group (DTensor parameters, hints, a placed decode cache): train steps,
+the hinted flash forward and decode steps bit for bit the unsharded
+model's.
 """
 from pathlib import Path
 
@@ -33,6 +37,7 @@ import torch
 from repro_torch.core import build_forest, forest_from_cdf
 from repro_torch.core.alias import build_alias_parallel, np_sample_alias_f32
 from repro_torch.core.lds import qmc_point_np
+from repro_torch.dist.local import whole
 from repro_torch.kernels import groups, ref
 from repro_torch.kernels.alias_build import alias_build_batched
 from repro_torch.kernels.alias_sample import alias_sample_batched, alias_sample_grouped
@@ -1277,3 +1282,137 @@ def test_verify_pool_names_a_corrupted_card_row(cuda):
     assert verify_pool(pool) == [
         f"forest[64] row {hs[1].row}: cdf has non-finite entries",
         f"alias[512] row {hs[2].row}: alias split points q outside [0, 1]"]
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A (1, 1) DeviceMesh over a single-rank nccl group, destroyed after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        yield make_host_mesh(1, 1, device=cuda)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("H,KV,h0,Hl", [(16, 4, 6, 4), (16, 4, 8, 8), (8, 8, 3, 2),
+                                         (32, 8, 5, 7)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_on_local_heads_at_an_offset(cuda, H, KV, h0, Hl, dtype):
+    """B10 on a rank's query heads h0..h0+Hl (global KV head (h0 + h) //
+    (H / KV): a slice where the heads cover whole groups, else one KV head
+    picked a query head) against its plain version on the same heads."""
+    from repro_torch.dist.local import _kv_heads
+
+    g = torch.Generator(device=cuda).manual_seed(H * 100 + h0)
+    q, k, v = (torch.randn(2, 300, n, 64, generator=g, device=cuda).to(dtype)
+               for n in (H, KV, KV))
+    kl, vl = _kv_heads(k, h0, Hl, H // KV), _kv_heads(v, h0, Hl, H // KV)
+    got = flash_attention(q[:, :, h0:h0 + Hl], kl, vl, causal=True)
+    want = ref.ref_flash_attention(q, k, v, causal=True)[:, :, h0:h0 + Hl]
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _dist_lm_cfg():
+    import dataclasses
+
+    import repro_torch.configs as C
+
+    return dataclasses.replace(C.get_reduced("qwen1_5_0_5b"), n_layers=4, d_model=512,
+                               n_heads=8, n_kv_heads=8, head_dim=64, vocab=4096)
+
+
+def test_dist_lm_train_step_on_one_rank_is_bitwise(cuda, nccl_mesh):
+    """Train steps of a model distributed by ``Policy.recommended`` on the
+    (1, 1) nccl mesh: losses, gradient norms, parameters and moments bit
+    for bit the unsharded model's, under deterministic algorithms."""
+    from repro_torch.data import MixtureSampler, make_batch
+    from repro_torch.dist import sharding as TS
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, init_opt
+    from repro_torch.train.step import make_train_step
+
+    cfg = _dist_lm_cfg()
+    mixture = MixtureSampler((0.5, 0.25, 0.125, 0.125), device=cuda)
+
+    def model():
+        return init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda,
+                           param_dtype=torch.float32).requires_grad_()
+
+    oc = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    plain = model()
+    sh = TS.distribute_params(model(), nccl_mesh, TS.Policy.recommended(cfg, nccl_mesh, "train"))
+    po, so = init_opt(oc, plain), init_opt(oc, sh)
+    step = make_train_step(cfg, oc, remat="dots")
+    torch.use_deterministic_algorithms(True)
+    try:
+        for s in range(2):
+            batch = make_batch(cfg, s, 4, 128, mixture=mixture)
+            _, _, m1 = step(plain, po, batch)
+            _, _, m2 = step(sh, so, batch)
+            for k in ("loss", "grad_norm", "lr"):
+                assert torch.equal(m1[k], m2[k]), k
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for (n, a), b in zip(plain.named_parameters(), sh.parameters()):
+        assert torch.equal(whole(b), a), n
+    for k in po.m:
+        assert torch.equal(whole(so.m[k]), po.m[k]) and torch.equal(whole(so.v[k]), po.v[k])
+
+
+def test_dist_lm_hinted_flash_and_decode_on_one_rank(cuda, nccl_mesh):
+    """The hinted flash eval forward (B10 through the local-heads wrapper)
+    and four ``make_serve_step`` steps (B3, B9) on a cache placed by
+    ``cache_spec_tree``: bit for bit the unsharded model's; the compressed
+    pod all-reduce of a gradient equals dequantize(quantize(g))."""
+    import dataclasses
+
+    from repro_torch.dist import compression as Q
+    from repro_torch.dist import hints as H
+    from repro_torch.dist import sharding as TS
+    from repro_torch.models import forward, init_params, prefill
+    from repro_torch.train.step import make_serve_step
+
+    cfg = _dist_lm_cfg()
+    flash = dataclasses.replace(cfg, attn_impl="flash")
+    g = torch.Generator(device=cuda)
+    plain = init_params(cfg, g.manual_seed(0), cuda)
+    pol = TS.Policy.for_mesh(nccl_mesh)
+    dm = TS.distribute_params(init_params(cfg, g.manual_seed(0), cuda), nccl_mesh, pol)
+    tok = torch.randint(0, cfg.vocab, (2, 512), generator=g.manual_seed(1), device=cuda)
+    before = flash_attention.launches
+    with torch.no_grad():
+        want, _ = forward(plain, flash, {"tokens": tok})
+        with H.sharding_hints(H.Hints(pol, gather_weights=True, seq_shard=True)):
+            got, _ = forward(dm, flash, {"tokens": tok})
+    assert flash_attention.launches - before == 2 * cfg.n_layers
+    assert torch.equal(whole(got), want)
+
+    pol = TS.Policy.recommended(cfg, nccl_mesh, "decode")
+    dd = TS.distribute_params(init_params(cfg, g.manual_seed(0), cuda), nccl_mesh, pol)
+    logits, cache, _ = prefill(plain, cfg, {"tokens": tok[:, :16].repeat(8, 1)}, max_seq=32)
+    dcache = TS.distribute_cache(cfg, {b: {k: t.clone() for k, t in c.items()}
+                                       for b, c in cache.items()}, nccl_mesh, pol)
+    serve = make_serve_step(cfg)
+    nxt, pos = logits.argmax(-1), torch.full((16,), 16, device=cuda)
+    before = (cdf_scan.launches, sample_rows.launches)
+    for s in range(4):
+        xi = torch.rand(16, generator=g.manual_seed(10 + s), device=cuda)
+        a, _ = serve(plain, cache, nxt, pos, xi)
+        b, _ = serve(dd, dcache, nxt, pos, xi)
+        assert torch.equal(a, b)
+        nxt, pos = a, pos + 1
+    assert (cdf_scan.launches - before[0], sample_rows.launches - before[1]) == (8, 8)
+    for b_, c in cache.items():
+        for k, t in c.items():
+            assert torch.equal(whole(dcache[b_][k]), t), (b_, k)
+
+    x = torch.randn(10_000, generator=g.manual_seed(2), device=cuda)
+    q, s = Q.quantize_int8(x)
+    assert torch.equal(Q.make_pod_allreduce(compress=True)(x), Q.dequantize_int8(q, s))
+    assert torch.equal(Q.make_pod_allreduce()(x), x)

@@ -2,8 +2,10 @@
 CPU at reduced widths in float32: gradients, remat, the Mamba scan's
 backward, AdamW's in-place update, the analytic FLOP model and the shapes,
 the launcher. The train steps, microbatches, trainers and checkpoints are
-in ``tests/test_torch_train_families_steps.py``, which shares the helpers
-here (two files, so pytest-xdist's workers run them side by side).
+in ``tests/test_torch_train_families_steps.py``, ``..._kimi.py``,
+``..._jamba.py`` and ``..._jamba_trainer.py`` (checks in
+``tests/_train_families_steps.py``), which share the helpers here (files
+of similar cost, so pytest-xdist's workers run them side by side).
 
 Tolerances:
 * ``loss_fn`` gradients leaf by leaf (through ``interop.params_to_jax``)
@@ -113,6 +115,14 @@ def test_grads_match_jax(arch):
                                    err_msg=k)
 
 
+@functools.cache
+def _no_remat(arch: str):
+    """Loss and gradients with ``remat="none"`` on the cut model and batch
+    of :func:`test_remat_keeps_gradients` (shared by both remat modes)."""
+    _, tcfg, _ = _jax_state(arch, cut=True)
+    return loss_and_grads(_model(arch, cut=True), tcfg, make_batch(tcfg, 1, B, S))
+
+
 @pytest.mark.parametrize("remat", ["dots", "full"])
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_remat_keeps_gradients(arch, remat):
@@ -120,9 +130,8 @@ def test_remat_keeps_gradients(arch, remat):
     for bit equal to ``remat="none"``."""
     _, tcfg, _ = _jax_state(arch, cut=True)
     batch = make_batch(tcfg, 1, B, S)
-    model = _model(arch, cut=True)
-    l0, g0 = loss_and_grads(model, tcfg, batch)
-    l1, g1 = loss_and_grads(model, tcfg, batch, remat=remat)
+    l0, g0 = _no_remat(arch)
+    l1, g1 = loss_and_grads(_model(arch, cut=True), tcfg, batch, remat=remat)
     assert torch.equal(l0, l1)
     for k in g0:
         assert torch.equal(g0[k], g1[k]), k
