@@ -142,6 +142,21 @@ the ignored ``build/`` directory), then:
    saved unsharded at step 2 restored into a sharded Trainer
    (``restore(shardings=)``) and its next step, bit for bit, and B10 on a
    rank's local query heads at a head offset against its plain version;
+   9e. the dist_families path (``dist_families_path``) on the same mesh:
+   each family of ``FAMILIES`` at its cut in bf16 (the MoE, Mamba and
+   xLSTM local forms, the encoder, the embedding frontend): prefill of 16
+   rows, 4 timed and one profiled ``make_serve_step`` steps (B3, B9) and
+   the flash eval forward (B10), unsharded, then the same weights
+   distributed in place (one copy resident) under
+   ``Policy.recommended(cfg, mesh, "decode")`` and under JAX's 2-D
+   ``shard_seq`` preset on a ``cache_spec_tree``-placed cache, logits,
+   tokens, caches and nll bit for bit; then one train step of Kimi's and
+   Jamba's ``FAMILY_TRAIN`` cuts under ``recommended(train)`` on the
+   mixture's batches (B1-B3), unsharded and then sharded from the same
+   seed, loss, gradient norm and every parameter bit for bit, a second
+   step of each profiled; decode and train ms sharded beside unsharded,
+   launches and idle share, peak under 72 GiB; the kernel-launching calls
+   run in profiler windows, whose device ms and records are the path's;
    3b. the dist phase (``dist_path``) on a single-rank nccl group: the
    same weights through ``build_cdf_sharded`` and ``build_forest_sharded``,
    the 2^24 uniforms through ``sample_sharded`` routed and with the
@@ -159,15 +174,16 @@ the ignored ``build/`` directory), then:
    (Qwen1.5-0.5B, 16 slots, KV cache) saved mid-flight through disk, their
    next drains and tokens equal to the originals';
 10. prints the kernels line (launch counts from the runs of steps 3, 3b, 4,
-   5, 6, 7b, 8, 9's eval and train paths, 9b, 9c and 9d, each with every count
-   set to 0 just before it; each kernel's launches and summed device time
-   on each of the twelve paths, main, dist, paper, map2d, pool, robust,
-   serve, eval, train, families, families_train and dist_lm: the time
-   from torch.profiler, CUDA activity only, by the kernels' symbols, around
-   a second counted run of each path (of train and families_train, a
-   replay of their mixtures and batches; of dist_lm, the path without its
-   train steps: those steps launch none of the port's kernels) at the
-   end, printed with the device records
+   5, 6, 7b, 8, 9's eval and train paths, 9b, 9c, 9d and 9e, each with every
+   count set to 0 just before it; each kernel's launches and summed device
+   time on each of the thirteen paths, main, dist, paper, map2d, pool,
+   robust, serve, eval, train, families, families_train, dist_lm and
+   dist_families: the time from torch.profiler, CUDA activity only, by the
+   kernels' symbols, around a second counted run of each path (of train
+   and families_train, a replay of their mixtures and batches; of dist_lm,
+   the path without its train steps: those steps launch none of the port's
+   kernels; of dist_families, its own profiler windows in its one run) at
+   the end, printed with the device records
    beside the launches, so the first runs' times carry no tracing cost; ``cdf_scan``
    also carries its decode-shape times as ``at_decode``, B6 and B8 their
    drain-shape times as ``at_drain``, B9 its shapes and the launch floor as
@@ -436,14 +452,43 @@ def stage_times(device, weights: np.ndarray, m: int) -> dict:
     }
 
 
-def device_events(prof):
-    return [e for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+class DeviceRecords:
+    """The device records of one (demangled) name in a profile: the fields
+    of a ``key_averages()`` entry this script reads."""
+
+    __slots__ = ("key", "count", "self_device_time_total")
+
+    def __init__(self, key: str):
+        self.key, self.count, self.self_device_time_total = key, 0, 0.0
+
+
+def device_events(prof) -> list:
+    """A profile's device records grouped by name, read from the profiler's
+    raw kineto events: ``key_averages()`` first builds a Python event (and
+    its tree) for every record, CPU and device, which took most of the
+    ~140 s of the families path's traced run. The same counts and sums as
+    its device entries: names demangled and hidden events skipped as its
+    parser does."""
+    from torch.autograd import DeviceType
+
+    out, names = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_hidden_event():
+            continue
+        raw = e.name()
+        key = names.get(raw)
+        if key is None:
+            key = names[raw] = torch._C._demangle(raw)
+        r = out.get(key)
+        if r is None:
+            r = out[key] = DeviceRecords(key)
+        r.count += 1
+        r.self_device_time_total += e.duration_ns() / 1e3
+    return list(out.values())
 
 
 def dev_us(e) -> float:
-    return getattr(e, "self_device_time_total", None) or getattr(
-        e, "self_cuda_time_total", 0.0)
+    return e.self_device_time_total
 
 
 def device_ms(fn, reps: int) -> float:
@@ -468,37 +513,48 @@ def profile_calls(calls) -> None:
         profile_one(name, fn)
 
 
-def profile_one(name: str, fn, trace: bool = False, cpu: bool = True) -> dict:
-    """Wall, device busy time, idle share and kernel launches of one call
-    (torch.profiler, CPU and CUDA activity; CUDA alone where ``cpu`` is
-    false), printed with the heaviest kernels; empty where the profiler
-    measured no device time. Where an outer trace is running (``trace``),
-    the call runs untraced and nothing is read."""
+def traced(fn, cpu: bool = False) -> tuple:
+    """``fn()`` inside torch.profiler (CUDA activity, and CPU where
+    ``cpu``): (its result, the window's record: wall, device busy time,
+    idle share and kernel launches, each port kernel's device ms and
+    records (``kernel_ms``, ``records``) and the heaviest device events
+    (``top``); empty where the profiler measured no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
-    if trace:
-        fn()
-        return {}
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
     with profile(activities=activities) as prof:
         t = time.perf_counter()
-        fn()
+        result = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     kernels = device_events(prof)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     if busy_ms <= 0:
+        return result, {}
+    return result, dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms,
+                        launches=sum(e.count for e in kernels),
+                        kernel_ms=kernel_device_ms(kernels), records=kernel_records(kernels),
+                        top=sorted(kernels, key=dev_us, reverse=True)[:6])
+
+
+def profile_one(name: str, fn, trace: bool = False, cpu: bool = True) -> dict:
+    """``traced``'s record of one call (CPU and CUDA activity; CUDA alone
+    where ``cpu`` is false), printed with the heaviest kernels; empty where
+    the profiler measured no device time. Where an outer trace is running
+    (``trace``), the call runs untraced and nothing is read."""
+    if trace:
+        fn()
+        return {}
+    _, out = traced(fn, cpu)
+    if not out:
         print(f"profile {name}: device time not measured by the profiler", flush=True)
         return {}
-    out = dict(wall_ms=wall_ms, busy_ms=busy_ms, idle=1 - busy_ms / wall_ms,
-               launches=sum(e.count for e in kernels))
-    top = sorted(kernels, key=dev_us, reverse=True)[:6]
-    print(f"profile {name}: wall {wall_ms:.3f} ms (profiled), device busy "
-          f"{busy_ms:.3f} ms, idle share {out['idle']:.3f}, "
+    print(f"profile {name}: wall {out['wall_ms']:.3f} ms (profiled), device busy "
+          f"{out['busy_ms']:.3f} ms, idle share {out['idle']:.3f}, "
           f"{out['launches']} kernel launches; top: "
           + "; ".join(f"{e.key[:48]} x{e.count} {dev_us(e) / 1e3:.3f} ms"
-                      for e in top), flush=True)
+                      for e in out["top"]), flush=True)
     return out
 
 
@@ -521,7 +577,7 @@ KERNEL_SYMBOLS = {
     "flash_attention": ("flash_attention_f32_tf32x3", "flash_attention_bf16_wgmma"),
 }
 PATHS = ("main", "dist", "paper", "map2d", "pool", "robust", "serve", "eval", "train",
-         "families", "families_train", "dist_lm")
+         "families", "families_train", "dist_lm", "dist_families")
 
 
 def kernel_of(key: str):
@@ -544,20 +600,22 @@ def kernel_of(key: str):
     return None
 
 
-def kernel_device_ms(prof) -> dict:
-    """Summed device time (ms) of each wrapper's kernels in a profile."""
+def kernel_device_ms(events) -> dict:
+    """Summed device time (ms) of each wrapper's kernels in a profile's
+    ``device_events``."""
     out = dict.fromkeys(KERNEL_SYMBOLS, 0.0)
-    for e in device_events(prof):
+    for e in events:
         k = kernel_of(e.key)
         if k is not None:
             out[k] += dev_us(e) / 1e3
     return out
 
 
-def kernel_records(prof) -> dict:
-    """The number of device records of each wrapper's kernels in a profile."""
+def kernel_records(events) -> dict:
+    """The number of device records of each wrapper's kernels in a
+    profile's ``device_events``."""
     out = dict.fromkeys(KERNEL_SYMBOLS, 0)
-    for e in device_events(prof):
+    for e in events:
         k = kernel_of(e.key)
         if k is not None:
             out[k] += e.count
@@ -2913,7 +2971,7 @@ def family_run(device, arch: str, run: str, over: dict, cut: str, trace: bool) -
     rec["launches"] = {k: fn.launches - before[k] for k, fn in kernels.items()}
     if trace:
         check(in_traced == rec["launches"], f"{cfg.name}: every B3/B9/B10 launch traced")
-        rec["device_ms"] = kernel_device_ms(prof)
+        rec["device_ms"] = kernel_device_ms(device_events(prof))
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -3496,6 +3554,274 @@ def dist_lm_checks(device, cfg, mesh, ckpt_root: Path, B=TRAIN_B, S=TRAIN_S) -> 
               f"(tol {FLASH_TOL[torch.bfloat16]})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The dist_families phase: every non-dense family distributed on the (1, 1)
+# mesh over the single-rank nccl group (the MoE, Mamba and xLSTM local forms,
+# the encoder and the embedding frontend, the decode cache write), each run
+# against its unsharded twin, bit for bit.
+# ---------------------------------------------------------------------------
+
+DIST_FAMILY_ROWS = 16        # decode rows
+DIST_FAMILY_PROMPT = 32      # prompt tokens (embeddings) before the decode steps
+DIST_FAMILY_DECODE = 4       # timed make_serve_step steps, then one profiled
+DIST_FAMILY_TRAIN = ("kimi_k2_1t_a32b", "jamba_1_5_large_398b")  # FAMILY_TRAIN's cuts
+DIST_FAMILY_KERNELS = ("cdf_scan", "forest_delta", "forest_sample", "forest_pack",
+                       "sample_rows", "flash_attention")
+
+
+def undistribute(model) -> None:
+    """A model distributed on a mesh of one device back to plain parameters
+    (each DTensor's local tensor is the whole parameter there)."""
+    for name, p in list(model.named_parameters()):
+        mod_name, _, attr = name.rpartition(".")
+        mod = model.get_submodule(mod_name) if mod_name else model
+        setattr(mod, attr, torch.nn.Parameter(p.to_local(), requires_grad=p.requires_grad))
+    del model.dist_state
+
+
+def _add_window(acc: dict, w: dict, launched: dict) -> None:
+    """Sum a traced window's kernel device ms and records into ``acc``,
+    and check that every kernel it launched has device time there."""
+    check(bool(w), "dist_families: the profiler measured device time in its window")
+    for k, n in launched.items():
+        check(n == 0 or w["kernel_ms"][k] > 0, f"{k}: device time in its dist_families window")
+        acc["ms"][k] += w["kernel_ms"][k]
+        acc["records"][k] += w["records"][k]
+
+
+def dist_family_serve(device, mesh, arch: str, over: dict, cut: str, acc: dict) -> dict:
+    """One family of FAMILIES at its cut, bf16: prefill of DIST_FAMILY_ROWS
+    rows, DIST_FAMILY_DECODE timed ``make_serve_step`` steps (B3, B9) and
+    one profiled, and, where the model attends, the flash eval forward
+    (B10); first unsharded, then the same model distributed in place
+    (never two copies resident) under ``Policy.recommended(cfg, mesh,
+    "decode")`` on a ``cache_spec_tree``-placed cache, then under JAX's 2-D
+    preset with ``shard_seq``: logits, tokens, caches and nll bitwise."""
+    import dataclasses
+    import gc
+
+    from repro_torch.data import make_batch
+    from repro_torch.dist import sharding as TS
+    from repro_torch.dist.local import whole
+    from repro_torch.kernels.cdf_scan import cdf_scan
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.sample_tiled import sample_rows
+    from repro_torch.models import init_params, loss_fn, prefill
+    from repro_torch.train.step import make_serve_step
+
+    cfg = family_cfg(arch, over)
+    print(f"dist_families: {cfg.name} cut: {cut}", flush=True)
+    B, P, n = DIST_FAMILY_ROWS, DIST_FAMILY_PROMPT, DIST_FAMILY_DECODE
+    embed = cfg.frontend == "embed"
+    raw = make_batch(cfg, 0, B, WHISPER_FRAMES if cfg.encoder_layers else P + n + 1)
+    key = "embeds" if embed else "tokens"
+    batch = {key: torch.as_tensor(raw[key][:, :P], device=device)}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.as_tensor(raw["frames"], device=device)
+    attn = bool(cfg.block_pattern.count("attn") or cfg.encoder_layers)
+    ev = make_batch(cfg, 1, *FAMILY_EVAL.get(arch, (1, 2048))) if attn else None
+    flash = dataclasses.replace(cfg, attn_impl="flash")
+    serve = make_serve_step(cfg)
+    kernels = {"cdf_scan": cdf_scan, "sample_rows": sample_rows,
+               "flash_attention": flash_attention}
+
+    def run(model, pol):
+        """One run; ``pol`` None: unsharded."""
+        logits, cache, enc = prefill(model, cfg, batch, P + n + 2)
+        if pol is not None:
+            cache = TS.distribute_cache(cfg, cache, mesh, pol)
+        out = dict(prefill=whole(logits), toks=[], times=[])
+        g = torch.Generator(device=device).manual_seed(4)
+        nxt, pos = out["prefill"].argmax(-1), torch.full((B,), P, device=device)
+        for i in range(n + 1):
+            xi = torch.rand(B, generator=g, device=device)
+            x = (torch.as_tensor(raw["embeds"][:, P + i:P + i + 1], device=device)
+                 if embed else nxt)
+
+            def one(x=x, pos=pos, xi=xi):
+                return serve(model, cache, x, pos, xi, enc)[0]
+
+            if i < n:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                tok = one()
+                torch.cuda.synchronize()
+                out["times"].append((time.perf_counter() - t) * 1e3)
+            else:
+                before = {k: fn.launches for k, fn in kernels.items()}
+                tok, out["step"] = traced(one)
+                _add_window(acc, out["step"], {k: fn.launches - before[k]
+                                               for k, fn in kernels.items()})
+            out["toks"].append(tok)
+            nxt, pos = tok, pos + 1
+        out["cache"] = {b: {k: whole(t) for k, t in c.items()} for b, c in cache.items()}
+        if attn:
+            before = flash_attention.launches
+            with torch.no_grad():
+                m, w = traced(lambda: loss_fn(model, flash, ev)[1])
+            _add_window(acc, w, {"flash_attention": flash_attention.launches - before})
+            out["nll"], out["flash"] = whole(m["nll"]), w
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=device).manual_seed(0), device)
+    runs = {"unsharded": run(model, None)}
+    pols = {"decode": TS.Policy.recommended(cfg, mesh, "decode"),
+            "2d": TS.Policy(dp=(), tp=tuple(mesh.mesh_dim_names), fsdp=(), shard_seq=True,
+                            sp="model")}
+    for name, pol in pols.items():
+        TS.distribute_params(model, mesh, pol)
+        runs[name] = run(model, pol)
+        undistribute(model)
+        want, got = runs["unsharded"], runs[name]
+        check(torch.equal(got["prefill"], want["prefill"]),
+              f"dist_families {cfg.name} {name}: prefill logits bitwise")
+        check(all(torch.equal(a, b) for a, b in zip(got["toks"], want["toks"])),
+              f"dist_families {cfg.name} {name}: decode tokens bitwise")
+        check(all(torch.equal(got["cache"][b][k], t) for b, c in want["cache"].items()
+                  for k, t in c.items()), f"dist_families {cfg.name} {name}: cache bitwise")
+        if attn:
+            check(torch.equal(got["nll"], want["nll"]),
+                  f"dist_families {cfg.name} {name}: flash eval nll bitwise")
+        del got["cache"]
+    del model, runs["unsharded"]["cache"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    rec = dict(name=cfg.name, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               wall_s=time.perf_counter() - t0,
+               ms={k: statistics.median(r["times"]) for k, r in runs.items()},
+               step={k: r["step"] for k, r in runs.items()},
+               flash_ms={k: r["flash"]["wall_ms"] for k, r in runs.items() if attn})
+    check(rec["peak_gib"] < FAMILY_TRAIN_PEAK_GIB,
+          f"dist_families {cfg.name}: peak {rec['peak_gib']:.2f} GiB")
+    print(f"dist_families {cfg.name}: prefill, {n + 1} make_serve_step steps over {B} rows and "
+          + ("the flash eval forward " if attn else "")
+          + "bitwise equal unsharded, under recommended(decode) and the 2-D shard_seq preset "
+          f"({pols['2d']}); decode step ms (median of {n}, host clock, synchronized) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in rec["ms"].items())
+          + "; profiled step launches / idle share "
+          + ", ".join(f"{k} {v['launches']} / {v['idle']:.3f}" for k, v in rec["step"].items())
+          + ("; flash forward ms (profiled) " + ", ".join(
+              f"{k} {v:.3f}" for k, v in rec["flash_ms"].items()) if attn else "")
+          + f"; peak {rec['peak_gib']:.2f} GiB; {rec['wall_s']:.1f} s", flush=True)
+    return rec
+
+
+def dist_family_train(device, mesh, arch: str, over: dict, B: int, remat: str, cut: str,
+                      acc: dict) -> dict:
+    """One train step of a FAMILY_TRAIN cut on the MixtureSampler's batch
+    (B3, B2, B1's pack and B1, in a traced window), float32 masters, bf16
+    compute, under deterministic algorithms: unsharded, then a fresh model
+    from the same seed under ``Policy.recommended(cfg, mesh, "train")``
+    (never two resident): loss, gradient norm and every parameter after
+    the step bitwise (the unsharded parameters held on the host); a second
+    step of each profiled."""
+    import gc
+
+    from repro_torch.data import MixtureSampler, make_batch
+    from repro_torch.dist import sharding as TS
+    from repro_torch.dist.local import whole
+    from repro_torch.kernels.cdf_scan import cdf_scan
+    from repro_torch.kernels.forest_delta import forest_delta
+    from repro_torch.kernels.forest_sample import forest_pack, forest_sample
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, init_opt
+    from repro_torch.train.step import make_train_step
+
+    cfg = family_cfg(arch, over)
+    S = FAMILY_TRAIN_S
+    print(f"dist_families train: {cfg.name} cut: {cut}", flush=True)
+    kernels = {"cdf_scan": cdf_scan, "forest_delta": forest_delta,
+               "forest_sample": forest_sample, "forest_pack": forest_pack}
+    before = {k: fn.launches for k, fn in kernels.items()}
+
+    def batches():
+        # the mixture built twice: late in the process a profiler window drops
+        # its first forest build's records (PERF.md section 7); the second is whole
+        MixtureSampler(MIXTURE, seed=0, device=device)
+        mixture = MixtureSampler(MIXTURE, seed=0, device=device)
+        return [make_batch(cfg, s, B, S, mixture=mixture) for s in range(2)]
+
+    bs, w = traced(batches)
+    _add_window(acc, w, {k: fn.launches - before[k] for k, fn in kernels.items()})
+    oc = AdamWConfig(total_steps=100, warmup_steps=1)
+    pol = TS.Policy.recommended(cfg, mesh, "train")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, host = {}, {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name in ("unsharded", "sharded"):
+            model = init_params(cfg, torch.Generator(device=device).manual_seed(0), device,
+                                param_dtype=torch.float32).requires_grad_()
+            if name == "sharded":
+                TS.distribute_params(model, mesh, pol)
+            opt = init_opt(oc, model)
+            step = make_train_step(cfg, oc, remat=remat)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = step(model, opt, bs[0])[2]   # bind no name to the state: it is freed
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            params = {k: whole(p).detach().to("cpu", copy=True)
+                      for k, p in model.named_parameters()}
+            if name == "unsharded":
+                host = params
+            else:
+                check(all(torch.equal(params[k], host[k]) for k in host),
+                      f"dist_families {cfg.name}: every parameter after the step bitwise")
+            del params
+            prof = profile_one(f"dist_families {cfg.name} train step {name} ({B} x {S})",
+                               lambda: step(model, opt, bs[1]), cpu=False)
+            out[name] = dict(ms=ms, loss=m["loss"], grad_norm=m["grad_norm"], step=prof)
+            del model, opt, step
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for k in ("loss", "grad_norm"):
+        check(torch.equal(out["unsharded"][k], out["sharded"][k]),
+              f"dist_families {cfg.name}: train step {k} bitwise")
+    del host
+    torch.cuda.synchronize()
+    rec = dict(name=cfg.name, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               wall_s=time.perf_counter() - t0, ms={k: v["ms"] for k, v in out.items()},
+               step={k: v["step"] for k, v in out.items()})
+    check(rec["peak_gib"] < FAMILY_TRAIN_PEAK_GIB,
+          f"dist_families {cfg.name} train: peak {rec['peak_gib']:.2f} GiB")
+    print(f"dist_families train {cfg.name}: one step {B} x {S} under {pol}, float32 masters, "
+          f"bf16 compute, remat {remat}: loss {float(out['sharded']['loss']):.6f}, grad norm "
+          f"and every parameter bitwise equal unsharded; step ms (the first, host clock, "
+          f"synchronized) " + ", ".join(f"{k} {v:.3f}" for k, v in rec["ms"].items())
+          + "; the second step profiled, launches / idle share "
+          + ", ".join(f"{k} {v['launches']} / {v['idle']:.3f}" if v else f"{k} not measured"
+                      for k, v in rec["step"].items())
+          + f"; peak {rec['peak_gib']:.2f} GiB; {rec['wall_s']:.1f} s", flush=True)
+    return rec
+
+
+def dist_families_path(device, mesh, families=FAMILIES, train=DIST_FAMILY_TRAIN) -> dict:
+    """Every family of FAMILIES served sharded beside unsharded
+    (``dist_family_serve``), then one sharded train step of the
+    FAMILY_TRAIN cuts named in ``train`` (``dist_family_train``). The
+    kernel-launching calls run in profiler windows; returns their summed
+    device ms and records by kernel."""
+    acc = {"ms": dict.fromkeys(KERNEL_SYMBOLS, 0.0), "records": dict.fromkeys(KERNEL_SYMBOLS, 0)}
+    for arch, _, over, cut in families:
+        dist_family_serve(device, mesh, arch, over, cut, acc)
+    for arch, over, B, remat, cut in FAMILY_TRAIN:
+        if arch in train:
+            dist_family_train(device, mesh, arch, over, B, remat, cut, acc)
+    print("dist_families kernel device ms in its profiler windows (device records): "
+          + ", ".join(f"{k} {acc['ms'][k]:.4f} ({acc['records'][k]})"
+                      for k in DIST_FAMILY_KERNELS if acc["ms"][k] > 0), flush=True)
+    return acc
+
+
 def run(build_s: float) -> dict:
     """The whole smoke run on the card (``build_s``: the kernel library's
     build time); returns the kernels record."""
@@ -3572,8 +3898,9 @@ def run(build_s: float) -> dict:
             torch.cuda.synchronize()
         check({k: fn.launches for k, fn in wrappers.items()} == counts[label],
               f"the {label} path launches the same kernels when run again")
-        path_ms[label] = kernel_device_ms(prof)
-        records = kernel_records(prof)
+        events = device_events(prof)
+        path_ms[label] = kernel_device_ms(events)
+        records = kernel_records(events)
         for k, c in counts[label].items():
             check(c == 0 or path_ms[label][k] > 0,
                   f"{k}: device time on the {label} path under its symbols")
@@ -3670,6 +3997,10 @@ def run(build_s: float) -> dict:
     check(counts["dist_lm"]["flash_attention"] == 2 * tcfg.n_layers,
           "B10 once per layer of each eval forward, unsharded and hinted")
     dist_lm_checks(device, tcfg, mesh, ckpt_root)
+    path_ms["dist_families"] = counted("dist_families", dist_families_path, device, mesh)["ms"]
+    for name in ("cdf_scan", "forest_delta", "forest_sample", "forest_pack", "sample_rows",
+                 "flash_attention"):
+        check(counts["dist_families"][name] > 0, f"{name} launched on the dist_families path")
 
     profiled("main", main_path, device, weights, m, n_draws, gen)
     profiled("dist", dist_path, device, weights, m, n_draws, gen)

@@ -19,10 +19,22 @@ runs the attention of each rank's own rows and query heads:
   k/v's gradients are partial sums over the head-sharded mesh dims.
 
 :func:`local_decode_attention` is the decode step's form: the cache is a
-DTensor sharded by batch and/or KV heads; the new key and value are
-written IN PLACE into the rank's local shard at ``(row, pos[row])``, and
-the rank attends its rows and heads over it. A sequence-sharded cache is
-not covered (``NotImplementedError``).
+DTensor sharded by batch, KV heads and/or sequence; the new key and value
+are written IN PLACE into the local shard that holds ``(row, pos[row])``,
+and the rank attends its rows and heads over its positions. Along a mesh
+dim that shards the sequence (JAX's 2-D decode preset) each rank brings
+its query heads of the other dims together, attends its slice of the
+positions, and the slices are merged by log-sum-exp: the largest logit
+and the sum of the exponentials over the slices, then the weights,
+rounded to the model dtype as ``_sdpa`` rounds them, times the values,
+summed over the slices.
+
+:class:`Split` is the local form of the recurrent blocks and the MoE
+(``models.ssm``, ``models.xlstm``, ``models.moe``): a block's channels,
+heads or experts split over the mesh dims its weight shards them on, its
+rows over those where the input is batch-sharded; the block runs on plain
+local tensors (scans and loops included, so no DTensor op runs a step)
+and its output is a partial sum over the split dims.
 
 The few DTensor helpers the model, the optimizer and the serve step share
 live here too: :func:`whole`, :func:`replicate`, :func:`gather_dim`,
@@ -30,7 +42,11 @@ live here too: :func:`whole`, :func:`replicate`, :func:`gather_dim`,
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+NEG_INF = -1e30  # the mask value of the JAX package
 
 
 def whole(t: torch.Tensor) -> torch.Tensor:
@@ -145,44 +161,210 @@ def local_attention(core, q, k, v):
     return _wrap(core(ql, kl, vl), mesh, qp, q.shape)
 
 
+def _seq_sharded_attention(q, k, v, keep, groups) -> torch.Tensor:
+    """Materialized attention of one token over keys sliced over
+    ``groups`` by position: q (B, 1, H, hd), this rank's slice k/v (B, Sl,
+    KV, hd) (GQA by ``h // (H / KV)``), keep (B, Sl). The softmax of the
+    whole sequence as ``_sdpa`` takes it: float32 logits, their largest
+    over the slices (a max all-reduce) and the sum of their exponentials
+    (a sum all-reduce); the weights rounded to q's dtype, their product
+    with the values summed over the slices in float32 (a sum all-reduce)
+    and rounded once to q's dtype. A slice with no key kept has its
+    logits at -1e30, so its weights are 0. Returns (B, 1, H, hd)."""
+    import torch.distributed as dist
+
+    B, _, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, hd)
+    logits = torch.einsum("bkgd,bskd->bkgs", qg, k).to(torch.float32) / math.sqrt(hd)
+    logits = torch.where(keep[:, None, None, :], logits, NEG_INF)
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    for g in groups:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
+    e = torch.exp(logits - m)
+    total = e.sum(-1, keepdim=True)
+    for g in groups:
+        dist.all_reduce(total, group=g)
+    w = (e / total).to(q.dtype)
+    o = torch.einsum("bkgs,bskd->bkgd", w.to(torch.float32), v.to(torch.float32))
+    for g in groups:
+        dist.all_reduce(o, group=g)
+    return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
 @torch.no_grad()
 def local_decode_attention(core, q, k, v, ck, cv, pos: torch.Tensor):
     """One decode token over a DTensor cache view ck/cv (B, S, KV, hd):
-    k/v (B, 1, KV, hd) are written in place into the local shard at
-    ``(row, pos[row])``, then ``core(q_local, ck_local, cv_local,
-    pos_local)`` runs the rank's rows and query heads. Returns a DTensor at
-    q's placements."""
+    k/v (B, 1, KV, hd) are written in place into the local shard that
+    holds ``(row, pos[row])``, then ``core(q_local, ck_local, cv_local,
+    pos_local)`` runs the rank's rows and query heads; where the cache's
+    sequence is sharded the positions are attended by slices and merged
+    (module docstring). Returns a DTensor at q's placements (the query
+    heads of a sequence-sharding dim whole)."""
     from torch.distributed.tensor import Replicate, Shard
 
     mesh = ck.device_mesh
-    qp, kp = [], []
-    for cp, p in zip(ck.placements, q.placements):
+    qp, kp, seq = [], [], []
+    for i, (cp, p) in enumerate(zip(ck.placements, q.placements)):
         d = _shard_dim(cp)
+        if d in (0, 2):
+            qp.append(Shard(d))
+            kp.append(Shard(d))
+            continue
         if d == 1:
-            raise NotImplementedError(
-                "decode over a sequence-sharded KV cache is not ported (ROADMAP A5)")
-        if d == 0:
-            qp.append(Shard(0))
-            kp.append(Shard(0))
-        elif d == 2:
-            qp.append(Shard(2))
-            kp.append(Shard(2))
-        else:
-            qp.append(Shard(2) if _shard_dim(p) == 2 else Replicate())
-            kp.append(Replicate())
+            seq.append(i)
+        qp.append(Shard(2) if d is None and _shard_dim(p) == 2 else Replicate())
+        kp.append(Replicate())
     q = q.redistribute(mesh, qp)
     k = k.redistribute(mesh, kp)
     v = v.redistribute(mesh, kp)
     H, KV = q.shape[2], ck.shape[2]
     b0, _, h0, _ = _offsets(q)
-    cb0, _, kv0, _ = _offsets(ck)
+    cb0, s0, kv0, _ = _offsets(ck)
     ql, ckl, cvl = q.to_local(), ck.to_local(), cv.to_local()
     if cb0 != b0 or ckl.shape[0] != ql.shape[0]:
         raise RuntimeError("decode: the query's rows and the cache's rows differ")
     pl = pos[b0:b0 + ql.shape[0]]
     rows = torch.arange(ql.shape[0], device=ql.device)
-    ckl[rows, pl] = k.to_local()[:, 0].to(ckl.dtype)
-    cvl[rows, pl] = v.to_local()[:, 0].to(cvl.dtype)
+    kl, vl = k.to_local()[:, 0], v.to_local()[:, 0]
+    if seq:
+        here = (pl >= s0) & (pl < s0 + ckl.shape[1])
+        rows, kl, vl = rows[here], kl[here], vl[here]
+    ckl[rows, pl[rows] - s0] = kl.to(ckl.dtype)
+    cvl[rows, pl[rows] - s0] = vl.to(cvl.dtype)
     kh = _kv_heads(ckl, h0, ql.shape[2], H // KV, kv0)
     vh = _kv_heads(cvl, h0, ql.shape[2], H // KV, kv0)
-    return _wrap(core(ql, kh, vh, pl), mesh, qp, q.shape)
+    if not seq:
+        return _wrap(core(ql, kh, vh, pl), mesh, qp, q.shape)
+    keep = (s0 + torch.arange(kh.shape[1], device=ql.device))[None] <= pl[:, None]
+    o = _seq_sharded_attention(ql, kh, vh, keep, [mesh.get_group(i) for i in seq])
+    return _wrap(o, mesh, qp, q.shape)
+
+
+class Split:
+    """The local form of one block (module docstring). ``x`` is the
+    block's DTensor input (B, ...); the split dims are the mesh dims on
+    which weight ``w`` is ``Shard(0)`` (its leading dim holds the block's
+    heads, channels or experts), dropped (the block then runs whole on
+    every rank of them) where they do not divide ``units``, the number of
+    those; the batch dims are the others on which ``x`` is batch-sharded.
+    Every other mesh dim computes the same on each rank.
+
+    Gradients: an input read on the local rows is batch-sharded in its
+    gradient and a partial sum over the split dims (each rank reads it
+    for its own part); a weight gathered whole on the split dims is a
+    partial sum there, one read by its local slice keeps that shard; every
+    weight is a partial sum over the batch dims."""
+
+    def __init__(self, x, w, units: int):
+        from torch.distributed.tensor import Shard
+
+        self.mesh = mesh = x.device_mesh
+        C = tuple(i for i, p in enumerate(w.placements) if p == Shard(0))
+        if units % math.prod(mesh.size(i) for i in C):
+            C = ()
+        self.C, self.n = C, math.prod(mesh.size(i) for i in C)
+        self.Bd = tuple(i for i, p in enumerate(x.placements) if p == Shard(0) and i not in C)
+        self.B = x.shape[0]
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+        self.b0 = compute_local_shape_and_global_offset(x.shape, mesh,
+                                                        self.placements(None))[1][0]
+
+    def placements(self, cdim, bdim=0, partial: bool = False) -> list:
+        """``bdim`` sharded over the batch dims, ``cdim`` over the split dims
+        (``Partial()`` there when ``partial``); ``Replicate()`` elsewhere."""
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        out = []
+        for i in range(self.mesh.ndim):
+            if i in self.C:
+                out.append(Partial() if partial else Shard(cdim) if cdim is not None
+                           else Replicate())
+            elif i in self.Bd and bdim is not None:
+                out.append(Shard(bdim))
+            else:
+                out.append(Replicate())
+        return out
+
+    def _grads(self, cdim, bdim) -> list:
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        return [(Shard(cdim) if cdim is not None else Partial()) if i in self.C
+                else (Shard(bdim) if bdim is not None else Partial()) if i in self.Bd
+                else Replicate() for i in range(self.mesh.ndim)]
+
+    def units(self, n: int) -> tuple[int, int]:
+        """The rank's ``[u0, u1)`` of ``n`` units split over the split dims."""
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+        shape, off = compute_local_shape_and_global_offset((n,), self.mesh, self.placements(0, None))
+        return off[0], off[0] + shape[0]
+
+    def rows(self, x) -> torch.Tensor:
+        """The local rows of ``x`` (every split dim's rank reads them all)."""
+        return x.redistribute(self.mesh, self.placements(None)).to_local(
+            grad_placements=self._grads(None, 0))
+
+    def weight(self, w, cdim: int | None = None) -> torch.Tensor:
+        """Weight ``w`` whole but for ``cdim`` split over the split dims
+        (``None``: whole there too)."""
+        return w.redistribute(self.mesh, self.placements(cdim, None)).to_local(
+            grad_placements=self._grads(cdim, None))
+
+    def _global(self, t, dim: int | None) -> tuple:
+        shape = [self.B if self.Bd else t.shape[0], *t.shape[1:]]
+        if dim is not None:
+            shape[dim] *= self.n
+        return tuple(shape)
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Local rows ``t`` split on ``dim`` over the split dims, gathered
+        whole on every rank of them."""
+        if not self.C:
+            return t
+        d = _wrap(t, self.mesh, self.placements(dim), self._global(t, dim))
+        return d.redistribute(self.mesh, self.placements(None)).to_local(
+            grad_placements=self.placements(None, partial=True))
+
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Local rows ``t``, a partial sum over the split dims, summed."""
+        if not self.C:
+            return t
+        d = _wrap(t, self.mesh, self.placements(None, partial=True), self._global(t, None))
+        return d.redistribute(self.mesh, self.placements(None)).to_local(
+            grad_placements=self.placements(None, partial=True))
+
+    def out(self, t: torch.Tensor, partial: bool = True):
+        """The block's local output rows as a DTensor: a partial sum over the
+        split dims (``partial``), else whole there."""
+        return _wrap(t, self.mesh, self.placements(None, partial=partial), self._global(t, None))
+
+    def whole_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Local rows ``t`` (the same on every split rank) gathered over the
+        batch dims (no gradient)."""
+        if not self.Bd:
+            return t
+        return _wrap(t, self.mesh, self.placements(None), self._global(t, None)).full_tensor()
+
+    def scalar(self, t: torch.Tensor):
+        """A local partial sum over the split and the batch dims (a loss
+        term of the rank's rows and units) as a DTensor."""
+        from torch.distributed.tensor import Partial, Replicate
+
+        return _wrap(t, self.mesh, [Partial() if i in self.C or i in self.Bd else Replicate()
+                                    for i in range(self.mesh.ndim)], tuple(t.shape))
+
+    def state_in(self, c, cdim: int | None) -> torch.Tensor:
+        """A decode-cache leaf (B, ...) (a DTensor, or plain and taken as
+        replicated) as the local rows with ``cdim`` split."""
+        from torch.distributed.tensor import DTensor
+
+        if not isinstance(c, DTensor):
+            c = replicate(c, self.mesh)
+        return c.redistribute(self.mesh, self.placements(cdim)).to_local()
+
+    def state_out(self, t: torch.Tensor, cdim: int | None):
+        """A new decode state's local rows as a DTensor (``cdim`` split)."""
+        return _wrap(t, self.mesh, self.placements(cdim), self._global(t, cdim))

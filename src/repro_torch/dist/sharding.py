@@ -290,31 +290,6 @@ def param_placements(model, mesh, pol: Policy) -> dict[str, list]:
             for name, _ in model.named_parameters()}
 
 
-# The families whose sequence blocks or MLPs the sharded path does not cover:
-# the MoE dispatch by index and the recurrent scans run on whole tensors.
-_UNSHARDED_BLOCKS = ("mamba", "mlstm", "slstm")
-
-
-def check_shardable(cfg: ModelConfig, mesh=None) -> None:
-    """Raise ``NotImplementedError`` for a config whose blocks the sharded
-    path does not run (MoE, Mamba, xLSTM); and, on a mesh of more than one
-    device, for an encoder (cross-attention) or an embedding frontend,
-    whose sharded forms have run only where every placement is
-    ``Replicate`` (ROADMAP A5)."""
-    kinds = sorted(set(cfg.block_pattern) & set(_UNSHARDED_BLOCKS))
-    if "moe" in cfg.mlp_pattern:
-        kinds.append("moe")
-    if mesh is not None and mesh.size() > 1:
-        if cfg.encoder_layers:
-            kinds.append("encoder / cross-attention")
-        if cfg.frontend == "embed":
-            kinds.append("embedding-frontend")
-    if kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: the sharded LM path does not cover {', '.join(kinds)} "
-            "blocks yet (ROADMAP A5)")
-
-
 @torch.no_grad()
 def distribute_params(model, mesh, pol: Policy):
     """Swap every parameter of ``model`` for a DTensor parameter placed by
@@ -326,7 +301,6 @@ def distribute_params(model, mesh, pol: Policy):
     ``dist_state``, which :func:`place_batch` reads. Returns ``model``."""
     from torch.distributed.tensor import distribute_tensor
 
-    check_shardable(model.cfg, mesh)
     pls = param_placements(model, mesh, pol)
     lv = leaves(model.cfg)
     for name, p in list(model.named_parameters()):

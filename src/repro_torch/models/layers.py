@@ -24,12 +24,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor
 
-from repro_torch.dist.local import local_attention, local_decode_attention, replicate
+from repro_torch.dist.local import NEG_INF, local_attention, local_decode_attention, replicate
 from repro_torch.kernels import ops
 
 from .config import ModelConfig
-
-NEG_INF = -1e30  # the mask value of the JAX package
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:

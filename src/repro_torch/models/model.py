@@ -92,6 +92,13 @@ def check_supported(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.name}: unknown attn_impl {cfg.attn_impl!r}")
 
 
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    """A float32 zero to sum the aux losses in (replicated beside a
+    DTensor ``x``: a MoE's aux loss is a DTensor there)."""
+    z = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.replicate(z, x.device_mesh) if isinstance(x, DTensor) else z
+
+
 def _mlp_kind(cfg: ModelConfig, i: int) -> str:
     return cfg.mlp_pattern[i % len(cfg.mlp_pattern)]
 
@@ -143,7 +150,7 @@ class Period(nn.Module):
         """The period over the full sequence (JAX ``_period_forward``);
         ``cfg`` is the caller's, which picks causality and ``attn_impl``.
         Returns (x, the period's summed MoE aux loss, float32)."""
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = _zero(x)
         pp = H.gather_params(self)   # ZeRO-3 gather-on-use (no-op without hints)
         x = H.act_seq(x)             # sequence-sharded residual (no-op without hints)
         for i, kind in enumerate(pp.kinds):
@@ -390,7 +397,7 @@ def forward(params: LM, cfg: ModelConfig, batch: dict, remat: str = "none"):
     if remat == "dots":
         ctx = dict(context_fn=functools.partial(create_selective_checkpoint_contexts,
                                                 _save_dots))
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = _zero(x)
     for period in params.layers:
         if remat == "none" or not torch.is_grad_enabled():
             x, a = period(x, pos, cfg, enc_out)
@@ -419,9 +426,17 @@ def loss_fn(params: LM, cfg: ModelConfig, batch: dict, remat: str = "none"):
 
 
 def _put(c: dict, p: int, state: dict) -> None:
-    """Write one period's new recurrent state into the stacked cache."""
+    """Write one period's new recurrent state into the stacked cache: a
+    DTensor state into a DTensor cache's local shard at the cache's
+    placements, into a plain cache whole."""
     for name, t in state.items():
-        c[name][p].copy_(t)
+        dst = c[name][p]
+        if isinstance(t, DTensor):
+            if isinstance(dst, DTensor):
+                dst, t = dst.to_local(), t.redistribute(dst.device_mesh, dst.placements).to_local()
+            else:
+                t = t.full_tensor()
+        dst.copy_(t)
 
 
 @torch.no_grad()
@@ -471,7 +486,7 @@ def decode_step(params: LM, cfg: ModelConfig, cache: dict, token, pos, enc_out=N
     token = to_device(token, dev)
     pos = to_device(pos, dev).long()
     if cfg.frontend == "embed" and token.dim() == 3:
-        x = token.to(_dtype(cfg))
+        x = place_batch(params, token.to(_dtype(cfg)), "embeds")
     else:
         x = _embed_in(params, cfg, {"tokens": token.long()[:, None]})
     for p, period in enumerate(params.layers):

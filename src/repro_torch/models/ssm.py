@@ -9,14 +9,30 @@ relative bound, not bit for bit. Its backward is the adjoint scan over
 reversed time (``_SsmScan``), so training keeps one copy of the state a
 layer. Decode carries (the last ``K - 1`` conv inputs, the float32 state
 ``h``) per layer: O(1) per token.
+
+Over DTensors (a distributed model) the block runs by local shards
+(``dist.local.Split``): each rank takes its channels of DI, split over the
+mesh dims that shard ``in_proj``'s output. That output is JAX's
+concatenated ``[x | z]``, whose shards are not the two halves' shards, so
+the rank's block of it is gathered over those dims and both halves
+re-sliced. The conv, the gates and the scan run on the local channels;
+``x_proj`` contracts over them, so its output is summed over the split
+dims; ``out_proj`` is row-parallel, a partial sum. The decode state ``h``
+takes the local channels; ``conv``, which JAX's cache rule leaves whole,
+is sliced on the way in and written back whole.
 """
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from torch.distributed.tensor import DTensor
+
+from repro_torch.dist.local import Split
 
 from .config import ModelConfig
 from .layers import _dtype, _f32, _weight
@@ -95,11 +111,14 @@ def ssm_scan(a: torch.Tensor, bx: torch.Tensor) -> torch.Tensor:
     return _SsmScan.apply(a, bx)
 
 
-def _gates(p: Mamba, cfg: ModelConfig, u: torch.Tensor):
+def _gates(p: Mamba, cfg: ModelConfig, u: torch.Tensor, reduce=None):
     """u (B, S, DI) after the conv -> (a, bx (B, S, DI, N), Cm (B, S, N),
-    u in float32)."""
+    u in float32). ``reduce`` sums ``x_proj``'s output over the ranks
+    that split DI (a local form's)."""
     N = cfg.ssm_state
     proj = F.linear(u, p.x_proj.to(u.dtype)).to(torch.float32)
+    if reduce is not None:
+        proj = reduce(proj)
     Bm, Cm, dt = proj[..., :N], proj[..., N:2 * N], proj[..., -1:]
     dt = softplus(dt + p.dt_bias)                                     # (B, S, DI)
     A = -torch.exp(p.a_log)                                           # (DI, N)
@@ -113,23 +132,44 @@ def _out(p: Mamba, y: torch.Tensor, z: torch.Tensor, dt) -> torch.Tensor:
     return F.linear(y.to(dt) * F.silu(z), p.out_proj.to(dt))
 
 
-def _mamba(p: Mamba, cfg: ModelConfig, x: torch.Tensor):
-    B, S, _ = x.shape
-    xi, z = torch.chunk(F.linear(x, p.in_proj.to(x.dtype)), 2, dim=-1)
+def _in(p: Mamba, x: torch.Tensor):
+    """(xi, z) (B, S, DI): the halves of the input projection."""
+    return torch.chunk(F.linear(x, p.in_proj.to(x.dtype)), 2, dim=-1)
+
+
+def _mamba(p: Mamba, cfg: ModelConfig, xi: torch.Tensor, z: torch.Tensor, reduce=None):
+    S = xi.shape[1]
     pad = F.pad(xi, (0, 0, cfg.ssm_conv - 1, 0))          # causal depthwise conv
     conv = 0
     for k in range(cfg.ssm_conv):
-        conv = conv + pad[:, k:k + S] * p.conv[k].to(x.dtype)
+        conv = conv + pad[:, k:k + S] * p.conv[k].to(xi.dtype)
     u = F.silu(conv)
-    a, bx, Cm, uf = _gates(p, cfg, u)
+    a, bx, Cm, uf = _gates(p, cfg, u, reduce)
     h = ssm_scan(a, bx)                                               # (B, S, DI, N)
     y = torch.einsum("bsin,bsn->bsi", h, Cm) + uf * p.d_skip
-    return _out(p, y, z, x.dtype), pad, h
+    return _out(p, y, z, xi.dtype), pad, h
+
+
+def _split(p: Mamba, cfg: ModelConfig, x):
+    """The local form's split, its local weights and the rank's channels of
+    the input projection's halves (module docstring)."""
+    DI = cfg.ssm_expand * cfg.d_model
+    sp = Split(x, p.in_proj, DI)
+    xl = sp.rows(x)
+    xz = sp.gather(F.linear(xl, sp.weight(p.in_proj, 0).to(xl.dtype)), 2)
+    c0, c1 = sp.units(DI)
+    local = SimpleNamespace(conv=sp.weight(p.conv, 1), x_proj=sp.weight(p.x_proj, 1),
+                            dt_bias=sp.weight(p.dt_bias, 0), a_log=sp.weight(p.a_log, 0),
+                            d_skip=sp.weight(p.d_skip, 0), out_proj=sp.weight(p.out_proj, 1))
+    return sp, local, xz[..., c0:c1], xz[..., DI + c0:DI + c1]
 
 
 def mamba(p: Mamba, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Full-sequence forward. x (B, S, D) -> (B, S, D)."""
-    return _mamba(p, cfg, x)[0]
+    if isinstance(x, DTensor):
+        sp, local, xi, z = _split(p, cfg, x)
+        return sp.out(_mamba(local, cfg, xi, z, sp.reduce)[0])
+    return _mamba(p, cfg, *_in(p, x))[0]
 
 
 def mamba_prefill(p: Mamba, cfg: ModelConfig, x: torch.Tensor):
@@ -137,8 +177,14 @@ def mamba_prefill(p: Mamba, cfg: ModelConfig, x: torch.Tensor):
     last ``K - 1`` conv inputs (zeros where the sequence is shorter) and
     ``h`` the scan's last state, float32 (JAX ``_mamba_prefill``, which
     replays the recurrence for it)."""
-    y, pad, h = _mamba(p, cfg, x)
-    return y, {"conv": pad[:, x.shape[1]:], "h": h[:, -1]}
+    S = x.shape[1]
+    if isinstance(x, DTensor):
+        sp, local, xi, z = _split(p, cfg, x)
+        y, pad, h = _mamba(local, cfg, xi, z, sp.reduce)
+        return sp.out(y), {"conv": sp.state_out(pad[:, S:], 2),
+                           "h": sp.state_out(h[:, -1], 1)}
+    y, pad, h = _mamba(p, cfg, *_in(p, x))
+    return y, {"conv": pad[:, S:], "h": h[:, -1]}
 
 
 def mamba_init_cache(cfg: ModelConfig, B: int, dtype, device=None, periods: int | None = None):
@@ -150,16 +196,24 @@ def mamba_init_cache(cfg: ModelConfig, B: int, dtype, device=None, periods: int 
             "h": torch.zeros(*lead, B, DI, cfg.ssm_state, dtype=torch.float32, device=device)}
 
 
-def mamba_decode(p: Mamba, cfg: ModelConfig, x: torch.Tensor, cache: dict):
-    """One-token step. x (B, 1, D) -> (y (B, 1, D), the new state)."""
-    xi, z = torch.chunk(F.linear(x, p.in_proj.to(x.dtype)), 2, dim=-1)
+def _step(p: Mamba, cfg: ModelConfig, xi, z, cache: dict, reduce=None):
     window = torch.cat([cache["conv"], xi], dim=1)                   # (B, K, DI)
-    conv = torch.einsum("bki,ki->bi", window, p.conv.to(x.dtype))[:, None]
+    conv = torch.einsum("bki,ki->bi", window, p.conv.to(xi.dtype))[:, None]
     u = F.silu(conv)
-    a, bx, Cm, uf = _gates(p, cfg, u)
+    a, bx, Cm, uf = _gates(p, cfg, u, reduce)
     h = a[:, 0] * cache["h"] + bx[:, 0]
     y = torch.einsum("bin,bn->bi", h, Cm[:, 0])[:, None] + uf * p.d_skip
-    return _out(p, y, z, x.dtype), {"conv": window[:, 1:], "h": h}
+    return _out(p, y, z, xi.dtype), {"conv": window[:, 1:], "h": h}
+
+
+def mamba_decode(p: Mamba, cfg: ModelConfig, x: torch.Tensor, cache: dict):
+    """One-token step. x (B, 1, D) -> (y (B, 1, D), the new state)."""
+    if isinstance(x, DTensor):
+        sp, local, xi, z = _split(p, cfg, x)
+        st = {"conv": sp.state_in(cache["conv"], 2), "h": sp.state_in(cache["h"], 1)}
+        y, st = _step(local, cfg, xi, z, st, sp.reduce)
+        return sp.out(y), {"conv": sp.state_out(st["conv"], 2), "h": sp.state_out(st["h"], 1)}
+    return _step(p, cfg, *_in(p, x), cache)
 
 
 def init_mamba_(p: Mamba, cfg: ModelConfig, normal_, gen: torch.Generator) -> None:

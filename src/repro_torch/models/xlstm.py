@@ -9,14 +9,30 @@ over chunks in log-forget space, the same einsums as the JAX package (so
 the same roundings in the model dtype). sLSTM is the scalar-memory variant
 with exponential gating and the max-stabilizer ``m`` (starting at
 ``-1e30``); it is sequential, a loop over time here as a ``lax.scan`` there.
+
+Over DTensors (a distributed model) both blocks run by local shards
+(``dist.local.Split``) on the heads of the rank, split over the mesh dims
+that shard their per-head weights (``wq``, ``r``). mLSTM: ``up``'s output
+is JAX's concatenated ``[x | z]``, so the rank's block of it is gathered
+over those dims; q, k, v take the local heads' rows of ``wq``/``wk``/``wv``
+from the whole ``x`` half, the gates the local heads' of the whole product,
+and the chunk scan runs on the local heads. sLSTM: ``wx``'s output and
+``r`` are head-major, so the local heads' rows, and the loop over time
+runs on the local heads with a local state. ``down`` is row-parallel, a
+partial sum over the split dims; the decode states take the local heads.
 """
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from torch.distributed.tensor import DTensor
+
+from repro_torch.dist.local import Split
 
 from .config import ModelConfig
 from .layers import _dtype, _f32, _weight
@@ -96,39 +112,73 @@ def _mlstm_chunk_scan(q, k, v, log_f, log_i, chunk: int):
     return h.reshape(B, S, H, hd).to(dt)
 
 
-def _mlstm_inputs(p: MLSTM, cfg: ModelConfig, x: torch.Tensor):
-    """x (B, S, D) -> (q, k scaled by 1/sqrt(hd), v (B, S, H, hd), gates
-    (B, S, 2 H) float32 with the bias, z (B, S, DI))."""
-    B, S, _ = x.shape
-    H, dt = cfg.n_heads, x.dtype
-    xin, z = torch.chunk(F.linear(x, p.up.to(dt)), 2, dim=-1)
-    hd = xin.shape[-1] // H
-    q = F.linear(xin, p.wq.to(dt)).view(B, S, H, hd)
-    k = F.linear(xin, p.wk.to(dt)).view(B, S, H, hd) * (1.0 / math.sqrt(hd))
-    v = F.linear(xin, p.wv.to(dt)).view(B, S, H, hd)
+def _mlstm_inputs(p: MLSTM, cfg: ModelConfig, xin: torch.Tensor, heads=None):
+    """xin (B, S, DI), the ``x`` half of ``up`` -> (q, k scaled by
+    1/sqrt(hd), v (B, S, Hl, hd), the input and forget gate logits (B, S,
+    Hl) float32 with the bias) of heads ``heads`` = (h0, h1) (default
+    all), whose rows ``wq``/``wk``/``wv`` hold."""
+    B, S, DI = xin.shape
+    H, dt = cfg.n_heads, xin.dtype
+    h0, h1 = heads or (0, H)
+    hd = DI // H
+    q = F.linear(xin, p.wq.to(dt)).view(B, S, h1 - h0, hd)
+    k = F.linear(xin, p.wk.to(dt)).view(B, S, h1 - h0, hd) * (1.0 / math.sqrt(hd))
+    v = F.linear(xin, p.wv.to(dt)).view(B, S, h1 - h0, hd)
     gates = F.linear(xin, p.wif.to(dt)).to(torch.float32) + p.if_bias
-    return q, k, v, gates, z
+    return q, k, v, gates[..., h0:h1], gates[..., H + h0:H + h1]
 
 
-def _mlstm(p: MLSTM, cfg: ModelConfig, x: torch.Tensor):
+def _mlstm(p: MLSTM, cfg: ModelConfig, xin: torch.Tensor, z: torch.Tensor, heads=None):
     """(y, k, v, log_i, log_f) of the full-sequence forward."""
-    B, S, _ = x.shape
-    H = cfg.n_heads
-    q, k, v, gates, z = _mlstm_inputs(p, cfg, x)
-    log_i = torch.clamp(gates[..., :H], max=10.0)      # exp input gate, capped
-    log_f = F.logsigmoid(gates[..., H:])               # sigmoid forget gate
+    B, S, _ = xin.shape
+    q, k, v, gi, gf = _mlstm_inputs(p, cfg, xin, heads)
+    log_i = torch.clamp(gi, max=10.0)                  # exp input gate, capped
+    log_f = F.logsigmoid(gf)                           # sigmoid forget gate
     chunk = min(cfg.mlstm_chunk, S)
     while S % chunk:
         chunk -= 1
     h = _mlstm_chunk_scan(q, k, v, log_f, log_i, chunk)
     h = h.reshape(B, S, -1) * F.silu(z)
-    return F.linear(h, p.down.to(x.dtype)), k, v, log_i, log_f
+    return F.linear(h, p.down.to(xin.dtype)), k, v, log_i, log_f
+
+
+def _up(p: MLSTM, x: torch.Tensor):
+    """(x half, z half) (B, S, DI) of the up projection."""
+    return torch.chunk(F.linear(x, p.up.to(x.dtype)), 2, dim=-1)
+
+
+def _mlstm_split(p: MLSTM, cfg: ModelConfig, x):
+    """The local form's split, its local weights, the whole ``x`` half of
+    ``up``, the local heads' ``z`` channels and the heads (module
+    docstring)."""
+    DI, H = 2 * cfg.d_model, cfg.n_heads
+    sp = Split(x, p.wq, H)
+    xl = sp.rows(x)
+    xz = sp.gather(F.linear(xl, sp.weight(p.up, 0).to(xl.dtype)), 2)
+    h0, h1 = sp.units(H)
+    hd = DI // H
+    local = SimpleNamespace(wq=sp.weight(p.wq, 0), wk=sp.weight(p.wk, 0), wv=sp.weight(p.wv, 0),
+                            wif=sp.weight(p.wif), if_bias=sp.weight(p.if_bias),
+                            down=sp.weight(p.down, 1))
+    return sp, local, xz[..., :DI], xz[..., DI + h0 * hd:DI + h1 * hd], (h0, h1)
 
 
 def mlstm(p: MLSTM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Full-sequence forward (x (B, S, D) -> (B, S, D)) through the chunk
     scan, the chunk cut down to a divisor of S as JAX cuts it."""
-    return _mlstm(p, cfg, x)[0]
+    if isinstance(x, DTensor):
+        sp, local, xin, z, heads = _mlstm_split(p, cfg, x)
+        return sp.out(_mlstm(local, cfg, xin, z, heads)[0])
+    return _mlstm(p, cfg, *_up(p, x))[0]
+
+
+def _mlstm_state(k, v, li, log_f):
+    Fc = torch.cumsum(log_f, dim=1)                                     # (B, S, H)
+    w = torch.exp(Fc[:, -1:] - Fc + li)                                 # (B, S, H)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    C = torch.einsum("bsh,bshd,bshe->bhde", w, vf, kf)
+    n = torch.einsum("bsh,bshd->bhd", w, kf)
+    return C, n
 
 
 def mlstm_prefill(p: MLSTM, cfg: ModelConfig, x: torch.Tensor):
@@ -136,12 +186,13 @@ def mlstm_prefill(p: MLSTM, cfg: ModelConfig, x: torch.Tensor):
     exp(F_S - F_t) i_t v_t k_t^T`` and ``n = sum_t exp(F_S - F_t) i_t
     k_t`` (F the cumulative log forget gate), the closed form of the
     recurrence that JAX's ``_mlstm_prefill`` steps through, in one product."""
-    y, k, v, li, log_f = _mlstm(p, cfg, x)
-    Fc = torch.cumsum(log_f, dim=1)                                     # (B, S, H)
-    w = torch.exp(Fc[:, -1:] - Fc + li)                                 # (B, S, H)
-    kf, vf = k.to(torch.float32), v.to(torch.float32)
-    C = torch.einsum("bsh,bshd,bshe->bhde", w, vf, kf)
-    n = torch.einsum("bsh,bshd->bhd", w, kf)
+    if isinstance(x, DTensor):
+        sp, local, xin, z, heads = _mlstm_split(p, cfg, x)
+        y, *rest = _mlstm(local, cfg, xin, z, heads)
+        C, n = _mlstm_state(*rest)
+        return sp.out(y), {"C": sp.state_out(C, 1), "n": sp.state_out(n, 1)}
+    y, *rest = _mlstm(p, cfg, *_up(p, x))
+    C, n = _mlstm_state(*rest)
     return y, {"C": C, "n": n}
 
 
@@ -156,17 +207,15 @@ def mlstm_init_cache(cfg: ModelConfig, B: int, dtype=None, device=None,
             "n": torch.zeros(*lead, B, H, hd, dtype=torch.float32, device=device)}
 
 
-def mlstm_decode(p: MLSTM, cfg: ModelConfig, x: torch.Tensor, cache: dict):
-    """One-token step. x (B, 1, D) -> (y (B, 1, D), the new state)."""
-    B = x.shape[0]
-    H, dt = cfg.n_heads, x.dtype
-    xin, z = torch.chunk(F.linear(x, p.up.to(dt)), 2, dim=-1)
-    DI = xin.shape[-1]
+def _mlstm_step(p: MLSTM, cfg: ModelConfig, xin, z, cache: dict, heads=None):
+    B, _, DI = xin.shape
+    H, dt = cfg.n_heads, xin.dtype
+    h0, h1 = heads or (0, H)
     hd = DI // H
-    q, k, v = (F.linear(xin, w.to(dt)).view(B, H, hd) for w in (p.wq, p.wk, p.wv))
+    q, k, v = (F.linear(xin, w.to(dt)).view(B, h1 - h0, hd) for w in (p.wq, p.wk, p.wv))
     gates = (F.linear(xin, p.wif.to(dt)).to(torch.float32) + p.if_bias)[:, 0]
-    i = torch.exp(torch.clamp(gates[..., :H], max=10.0))
-    f = torch.sigmoid(gates[..., H:])
+    i = torch.exp(torch.clamp(gates[..., h0:h1], max=10.0))
+    f = torch.sigmoid(gates[..., H + h0:H + h1])
     qf = q.to(torch.float32)
     kf = k.to(torch.float32) / math.sqrt(hd)
     vf = v.to(torch.float32)
@@ -175,8 +224,18 @@ def mlstm_decode(p: MLSTM, cfg: ModelConfig, x: torch.Tensor, cache: dict):
     n = cache["n"] * f[..., None] + i[..., None] * kf
     num = torch.einsum("bhde,bhe->bhd", C, qf)
     den = torch.clamp(torch.abs(torch.einsum("bhd,bhd->bh", n, qf))[..., None], min=1.0)
-    h = (num / den).reshape(B, 1, DI).to(dt) * F.silu(z)
+    h = (num / den).reshape(B, 1, -1).to(dt) * F.silu(z)
     return F.linear(h, p.down.to(dt)), {"C": C, "n": n}
+
+
+def mlstm_decode(p: MLSTM, cfg: ModelConfig, x: torch.Tensor, cache: dict):
+    """One-token step. x (B, 1, D) -> (y (B, 1, D), the new state)."""
+    if isinstance(x, DTensor):
+        sp, local, xin, z, heads = _mlstm_split(p, cfg, x)
+        st = {n: sp.state_in(cache[n], 1) for n in ("C", "n")}
+        y, st = _mlstm_step(local, cfg, xin, z, st, heads)
+        return sp.out(y), {n: sp.state_out(t, 1) for n, t in st.items()}
+    return _mlstm_step(p, cfg, *_up(p, x), cache)
 
 
 def init_mlstm_(p: MLSTM, cfg: ModelConfig, normal_) -> None:
@@ -210,13 +269,13 @@ class SLSTM(nn.Module):
         self.down = _weight(D, D, dtype=dt, device=device)
 
 
-def _slstm_cell(p: SLSTM, cfg: ModelConfig, wx_t: torch.Tensor, state):
-    """wx_t (B, 4 D) the input projection; state (h, c, n, m) each (B, H,
-    hd), h in the model dtype, the rest float32."""
+def _slstm_cell(p: SLSTM, wx_t: torch.Tensor, state):
+    """wx_t (B, 4 Hl hd) the input projection of the heads ``p.r`` holds;
+    state (h, c, n, m) each (B, Hl, hd), h in the model dtype, the rest
+    float32."""
     h, c, n, m = state
     B = wx_t.shape[0]
-    H = cfg.n_heads
-    hd = cfg.d_model // H
+    H, hd = p.r.shape[0], p.r.shape[1]
     rec = torch.einsum("bhd,hde->bhe", h, p.r.to(h.dtype))              # (B, H, 4 hd)
     z = wx_t.reshape(B, H, 4 * hd) + rec
     z = z.to(torch.float32) + p.bias.reshape(H, 4 * hd)
@@ -230,32 +289,53 @@ def _slstm_cell(p: SLSTM, cfg: ModelConfig, wx_t: torch.Tensor, state):
     return h_new.to(h.dtype), c_new, n_new, m_new
 
 
-def slstm_init_cache(cfg: ModelConfig, B: int, dtype, device=None,
-                     periods: int | None = None):
-    """Zero decode state: ``h`` (B, H, hd) in ``dtype``, ``c`` and ``n``
-    zeros and ``m`` at ``-1e30``, float32; with ``periods``, stacked over a
-    leading axis."""
-    H = cfg.n_heads
-    shape = (() if periods is None else (periods,)) + (B, H, cfg.d_model // H)
+def _slstm_zero(shape, dtype, device) -> dict:
     f32 = dict(dtype=torch.float32, device=device)
     return {"h": torch.zeros(shape, dtype=dtype, device=device),
             "c": torch.zeros(shape, **f32), "n": torch.zeros(shape, **f32),
             "m": torch.full(shape, -1e30, **f32)}
 
 
-def slstm_prefill(p: SLSTM, cfg: ModelConfig, x: torch.Tensor):
-    """The forward over time and its final state (h, c, n, m), which is the
-    state JAX's ``_slstm_prefill`` recomputes with a second scan."""
-    B, S, D = x.shape
+def slstm_init_cache(cfg: ModelConfig, B: int, dtype, device=None,
+                     periods: int | None = None):
+    """Zero decode state: ``h`` (B, H, hd) in ``dtype``, ``c`` and ``n``
+    zeros and ``m`` at ``-1e30``, float32; with ``periods``, stacked over a
+    leading axis."""
+    H = cfg.n_heads
+    return _slstm_zero((() if periods is None else (periods,)) + (B, H, cfg.d_model // H),
+                       dtype, device)
+
+
+def _slstm_seq(p: SLSTM, x: torch.Tensor):
+    B, S, _ = x.shape
     wx = F.linear(x, p.wx.to(x.dtype))
-    st = slstm_init_cache(cfg, B, x.dtype, x.device)
+    st = _slstm_zero((B, p.r.shape[0], p.r.shape[1]), x.dtype, x.device)
     state = (st["h"], st["c"], st["n"], st["m"])
     hs = []
     for t in range(S):
-        state = _slstm_cell(p, cfg, wx[:, t], state)
+        state = _slstm_cell(p, wx[:, t], state)
         hs.append(state[0])
-    y = torch.stack(hs, dim=1).reshape(B, S, D)
+    y = torch.stack(hs, dim=1).reshape(B, S, -1)
     return F.linear(y, p.down.to(x.dtype)), dict(zip("hcnm", state))
+
+
+def _slstm_split(p: SLSTM, cfg: ModelConfig, x):
+    """The local form's split, its rows and its local heads' weights
+    (module docstring)."""
+    sp = Split(x, p.r, cfg.n_heads)
+    local = SimpleNamespace(wx=sp.weight(p.wx, 0), r=sp.weight(p.r, 0),
+                            bias=sp.weight(p.bias, 0), down=sp.weight(p.down, 1))
+    return sp, sp.rows(x), local
+
+
+def slstm_prefill(p: SLSTM, cfg: ModelConfig, x: torch.Tensor):
+    """The forward over time and its final state (h, c, n, m), which is the
+    state JAX's ``_slstm_prefill`` recomputes with a second scan."""
+    if isinstance(x, DTensor):
+        sp, xl, local = _slstm_split(p, cfg, x)
+        y, st = _slstm_seq(local, xl)
+        return sp.out(y), {n: sp.state_out(t, 1) for n, t in st.items()}
+    return _slstm_seq(p, x)
 
 
 def slstm(p: SLSTM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -263,12 +343,20 @@ def slstm(p: SLSTM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return slstm_prefill(p, cfg, x)[0]
 
 
+def _slstm_step(p: SLSTM, x: torch.Tensor, cache: dict):
+    wx = F.linear(x, p.wx.to(x.dtype))[:, 0]
+    h, c, n, m = _slstm_cell(p, wx, (cache["h"], cache["c"], cache["n"], cache["m"]))
+    y = h.reshape(x.shape[0], 1, -1)
+    return F.linear(y, p.down.to(x.dtype)), {"h": h, "c": c, "n": n, "m": m}
+
+
 def slstm_decode(p: SLSTM, cfg: ModelConfig, x: torch.Tensor, cache: dict):
     """One-token step. x (B, 1, D) -> (y (B, 1, D), the new state)."""
-    wx = F.linear(x, p.wx.to(x.dtype))[:, 0]
-    h, c, n, m = _slstm_cell(p, cfg, wx, (cache["h"], cache["c"], cache["n"], cache["m"]))
-    y = h.reshape(x.shape[0], 1, cfg.d_model)
-    return F.linear(y, p.down.to(x.dtype)), {"h": h, "c": c, "n": n, "m": m}
+    if isinstance(x, DTensor):
+        sp, xl, local = _slstm_split(p, cfg, x)
+        y, st = _slstm_step(local, xl, {n: sp.state_in(t, 1) for n, t in cache.items()})
+        return sp.out(y), {n: sp.state_out(t, 1) for n, t in st.items()}
+    return _slstm_step(p, x, cache)
 
 
 def init_slstm_(p: SLSTM, cfg: ModelConfig, normal_) -> None:

@@ -1416,3 +1416,73 @@ def test_dist_lm_hinted_flash_and_decode_on_one_rank(cuda, nccl_mesh):
     q, s = Q.quantize_int8(x)
     assert torch.equal(Q.make_pod_allreduce(compress=True)(x), Q.dequantize_int8(q, s))
     assert torch.equal(Q.make_pod_allreduce()(x), x)
+
+
+@pytest.mark.parametrize("arch", ["kimi_k2_1t_a32b", "jamba_1_5_large_398b"])
+def test_dist_families_on_one_rank_are_bitwise(cuda, nccl_mesh, arch):
+    """Reduced Kimi K2 (MoE) and one period of reduced Jamba (Mamba,
+    attention, MoE) distributed on the (1, 1) nccl mesh, where the MoE,
+    Mamba and decode-cache local forms run on whole shards: a train step
+    under ``Policy.for_mesh`` (loss, gradient norm, every parameter and
+    moment) under deterministic algorithms, and prefill plus four decode
+    steps under the decode preset and under the 2-D ``shard_seq`` preset
+    (logits and cache), bit for bit the unsharded model's."""
+    import dataclasses
+
+    import repro_torch.configs as C
+    from repro_torch.data import make_batch
+    from repro_torch.dist import sharding as TS
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.train import AdamWConfig, init_opt
+    from repro_torch.train.step import make_train_step
+
+    cfg = C.get_reduced(arch)
+    if arch.startswith("jamba"):
+        cfg = dataclasses.replace(cfg, n_layers=len(cfg.block_pattern))   # one period
+    g = torch.Generator(device=cuda)
+
+    def model(dtype=torch.float32):
+        return init_params(cfg, g.manual_seed(0), cuda, param_dtype=dtype)
+
+    oc = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    plain = model().requires_grad_()
+    sh = TS.distribute_params(model(), nccl_mesh, TS.Policy.for_mesh(nccl_mesh)).requires_grad_()
+    po, so = init_opt(oc, plain), init_opt(oc, sh)
+    step = make_train_step(cfg, oc, remat="none")
+    batch = make_batch(cfg, 0, 4, 64)
+    torch.use_deterministic_algorithms(True)
+    try:
+        _, _, m1 = step(plain, po, batch)
+        _, _, m2 = step(sh, so, batch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for k in ("loss", "grad_norm", "lr"):
+        assert torch.equal(m1[k], m2[k]), k
+    for (n, a), b in zip(plain.named_parameters(), sh.parameters()):
+        assert torch.equal(whole(b), a), n
+    for k in po.m:
+        assert torch.equal(whole(so.m[k]), po.m[k]) and torch.equal(whole(so.v[k]), po.v[k])
+
+    tok = torch.randint(0, cfg.vocab, (8, 16), generator=g.manual_seed(1), device=cuda)
+    plain = init_params(cfg, g.manual_seed(0), cuda)
+    logits, cache, _ = prefill(plain, cfg, {"tokens": tok}, max_seq=24)
+    for pol in (TS.Policy.recommended(cfg, nccl_mesh, "decode"),
+                TS.Policy(dp=(), tp=("data", "model"), fsdp=(), shard_seq=True, sp="model")):
+        dm = TS.distribute_params(init_params(cfg, g.manual_seed(0), cuda), nccl_mesh, pol)
+        dl, dc, _ = prefill(dm, cfg, {"tokens": tok}, max_seq=24)
+        assert torch.equal(whole(dl), logits)
+        for b_, c in cache.items():
+            for k, t in c.items():
+                assert torch.equal(dc[b_][k], t), (pol, b_, k)
+        want = {b_: {k: t.clone() for k, t in c.items()} for b_, c in cache.items()}
+        got = TS.distribute_cache(cfg, {b_: {k: t.clone() for k, t in c.items()}
+                                        for b_, c in cache.items()}, nccl_mesh, pol)
+        nxt, pos = logits.argmax(-1), torch.full((8,), 16, device=cuda)
+        for _ in range(4):
+            a, want = decode_step(plain, cfg, want, nxt, pos)
+            b, got = decode_step(dm, cfg, got, nxt, pos)
+            assert torch.equal(whole(b), a), pol
+            nxt, pos = a.argmax(-1), pos + 1
+        for b_, c in want.items():
+            for k, t in c.items():
+                assert torch.equal(whole(got[b_][k]), t), (pol, b_, k)

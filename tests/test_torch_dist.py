@@ -13,7 +13,10 @@ this process.
   ``cache_spec_tree`` equal JAX's; the policies equal JAX's.
 * Placements: tensors distributed on a fake-backend mesh of 8 ranks (meta
   tensors) have local shapes equal to JAX's shard shapes carried into the
-  port's layout.
+  port's layout; ``distribute_params`` places every arch there (MoE, Mamba,
+  xLSTM, encoder and embedding frontend included).
+* MoE: ``group_plan`` on routing ids gathered from two batch halves gives
+  ``dispatch_plan``'s slots on the whole batch.
 * Hints: the same object outside the context.
 * On a gloo group of one rank: the hinted distributed forward bit for bit
   the unhinted plain forward, and within ``1e-5`` of JAX's forward (the
@@ -52,7 +55,7 @@ from repro_torch import ckpt
 from repro_torch.dist import compression as Q
 from repro_torch.dist import hints as H
 from repro_torch.dist import sharding as TS
-from repro_torch.dist.local import _kv_heads, whole
+from repro_torch.dist.local import _kv_heads, _seq_sharded_attention, whole
 from repro_torch.dist.pipeline import gpipe
 from repro_torch.interop import params_from_jax
 from repro_torch.kernels.ref import ref_flash_attention
@@ -163,7 +166,8 @@ def fake_world(request):
 
 @pytest.mark.parametrize("fake_world", [0, 5], indirect=True)
 @pytest.mark.parametrize("arch", ["qwen3_4b", "kimi_k2_1t_a32b", "jamba_1_5_large_398b",
-                                  "xlstm_1_3b", "whisper_small"])
+                                  "xlstm_1_3b", "whisper_small", "llama4_maverick_400b_a17b",
+                                  "internvl2_76b"])
 def test_placements_give_jax_shard_shapes(arch, fake_world):
     """Local shapes of every parameter distributed on a (4, 2) mesh of the
     fake backend equal JAX's shard shapes in the port's layout."""
@@ -225,25 +229,60 @@ def test_hints_are_identity_outside_the_context():
     assert H.current_hints() is None
 
 
-def test_unsharded_families_raise():
-    for arch in ("kimi_k2_1t_a32b", "jamba_1_5_large_398b", "xlstm_1_3b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            TS.check_shardable(TC.get_reduced(arch))
-    TS.check_shardable(TC.get_reduced("whisper_small"))
-
-
-@pytest.mark.parametrize("fake_world", [0], indirect=True)
-def test_encoder_and_embed_frontends_refuse_real_shards(fake_world):
-    """An encoder (cross-attention) or an embedding frontend is refused on
-    a mesh of more than one device, where its sharded form has not run;
-    dense decoders pass."""
+@pytest.mark.parametrize("fake_world", [5], indirect=True)
+@pytest.mark.parametrize("arch", TC.ARCHS)
+def test_every_family_distributes(arch, fake_world):
+    """``distribute_params`` places every arch (MoE, Mamba, xLSTM, encoder
+    and embedding frontend included) on a (4, 2) mesh of the fake backend
+    under the train, decode and 2-D decode policies, each local shape JAX's
+    shard shape in the port's layout."""
     from torch.distributed.device_mesh import init_device_mesh
 
+    shape = MESHES[0]
     mesh = init_device_mesh("cpu", (4, 2), mesh_dim_names=("data", "model"))
-    for arch, what in (("whisper_small", "encoder"), ("internvl2_76b", "embedding-frontend")):
-        with pytest.raises(NotImplementedError, match=what):
-            TS.check_shardable(TC.get_reduced(arch), mesh)
-    TS.check_shardable(TC.get_reduced("qwen3_4b"), mesh)
+    am = _amesh(shape)
+    cfg = TC.get_reduced(arch)
+    lv = TS.leaves(cfg)
+    for pol in (TS.Policy.for_mesh(mesh), TS.Policy.for_mesh(mesh, "decode"),
+                TS.Policy(dp=(), tp=("data", "model"), fsdp=(), shard_seq=True, sp="model")):
+        model = TS.distribute_params(init_params(cfg, device="cpu"), mesh, pol)
+        assert model.dist_state == (mesh, pol)
+        for name, p in model.named_parameters():
+            lf = lv[name]
+            jspec = TS._leaf_spec(lf.path, lf.shape, pol, shape)
+            shard = JNamedSharding(am, P(*jspec)).shard_shape(lf.shape)
+            if lf.path[0] in ("layers", "encoder"):
+                shard = shard[1:]
+            want = tuple(_to_port(torch.empty(shard, device="meta"), lf.kind).shape)
+            assert tuple(p.to_local().shape) == want, (arch, name, pol)
+
+
+def test_moe_group_plan_over_batch_halves():
+    """Routing ids gathered from the two halves of a batch give each
+    half's tokens the slots ``dispatch_plan`` gives them on the whole batch
+    (one group spans both halves; at capacity factor 0.5 pairs drop), which
+    a plan of a half alone does not."""
+    from repro_torch.models import moe as M
+
+    E, k, T = 4, 2, 64
+    G = M._pick_groups(T)
+    cap = M.capacity(T // G, k, E, 0.5)
+    rng = np.random.default_rng(4)
+    halves = [torch.from_numpy(rng.integers(0, E, (T // 2, k))) for _ in range(2)]
+    ids = torch.cat(halves)                        # what the gather over the halves gives
+    keep, pos = M.dispatch_plan(ids.view(G, T // G, k), E, cap)
+    keep, pos = keep.reshape(T, k, E), pos.reshape(T, k)
+    assert (keep.sum((1, 2)) < k).any()
+    for h, t0 in enumerate((0, T // 2)):
+        gids, gkeep, gpos = M.group_plan(ids, G, t0, T // 2, E, cap)
+        g = T // G
+        gi0 = t0 // g
+        lo = t0 - gi0 * g
+        assert torch.equal(gids.reshape(-1, k)[lo:lo + T // 2], halves[h])
+        assert torch.equal(gkeep.reshape(-1, k, E)[lo:lo + T // 2], keep[t0:t0 + T // 2])
+        assert torch.equal(gpos.reshape(-1, k)[lo:lo + T // 2], pos[t0:t0 + T // 2])
+    alone, _ = M.dispatch_plan(halves[1].view(1, T // 2, k), E, M.capacity(T // 2, k, E, 0.5))
+    assert not torch.equal(alone.reshape(-1, k, E), keep[T // 2:])
 
 
 @pytest.mark.parametrize("H_,KV,h0,Hl", [(8, 2, 2, 2), (8, 2, 4, 4), (6, 3, 3, 3), (6, 3, 1, 2),
@@ -263,6 +302,23 @@ def test_local_heads_read_their_kv_heads(H_, KV, h0, Hl):
     got = ref_flash_attention(q[:, :, h0:h0 + Hl], kl, vl, causal=True)
     ref = ref_flash_attention(q, k, v, causal=True)[:, :, h0:h0 + Hl]
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
+
+
+
+def test_seq_sharded_attention_rounds_weights_as_sdpa():
+    """The decode attention over a sequence-sharded cache, on one slice
+    (no group to merge over), in bfloat16: equal to ``_sdpa``, which
+    rounds the float32 softmax weights to the model dtype before their
+    product with the values."""
+    from repro_torch.models.layers import _sdpa
+
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(torch.bfloat16)
+               for s in ((3, 1, 8, 64), (3, 24, 2, 64), (3, 24, 2, 64)))
+    keep = torch.arange(24)[None] <= torch.tensor([3, 10, 23])[:, None]
+    got = _seq_sharded_attention(q, k, v, keep, [])
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, _sdpa(q, k, v, keep[:, None, None, None, :]))
 
 
 # ------------------------------------------------------------ compression
