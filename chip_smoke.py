@@ -157,6 +157,21 @@ the ignored ``build/`` directory), then:
    step of each profiled; decode and train ms sharded beside unsharded,
    launches and idle share, peak under 72 GiB; the kernel-launching calls
    run in profiler windows, whose device ms and records are the path's;
+   9f. the dryrun path (``dryrun_path``): ``python -m
+   repro_torch.launch.dryrun --auto-policy`` in subprocesses with no card
+   visible (``meta`` tensors, a fake world of 256 ranks) for Qwen1.5-0.5B
+   ``train_4k`` and Kimi K2 ``decode_32k`` (2-D TP across the InfiniBand
+   dims): ``status: ok``, build and trace seconds, argument and temp bytes
+   a rank, the three roofline terms and the dominant one; and the dry
+   run's prediction of the dist_lm train cell (Qwen1.5-0.5B, 8 x 256,
+   remat none, ``Policy.recommended(train)``, a fake world of one rank)
+   against the real step on the (1, 1) nccl mesh: the predicted argument
+   bytes a rank equal the real state's (parameters, AdamW moments and
+   step, the int32 batch) exactly, the measured step ms (median of 3 after
+   one) is at least ``max(t_compute, t_mem)``; printed beside them, the
+   predicted peak (arguments plus temp) and the measured one (the state
+   plus the step's ``max_memory_allocated`` growth), and
+   ``roofline_fraction``;
    3b. the dist phase (``dist_path``) on a single-rank nccl group: the
    same weights through ``build_cdf_sharded`` and ``build_forest_sharded``,
    the 2^24 uniforms through ``sample_sharded`` routed and with the
@@ -3628,8 +3643,6 @@ def dist_family_serve(device, mesh, arch: str, over: dict, cut: str, acc: dict) 
     def run(model, pol):
         """One run; ``pol`` None: unsharded."""
         logits, cache, enc = prefill(model, cfg, batch, P + n + 2)
-        if pol is not None:
-            cache = TS.distribute_cache(cfg, cache, mesh, pol)
         out = dict(prefill=whole(logits), toks=[], times=[])
         g = torch.Generator(device=device).manual_seed(4)
         nxt, pos = out["prefill"].argmax(-1), torch.full((B,), P, device=device)
@@ -3822,6 +3835,161 @@ def dist_families_path(device, mesh, families=FAMILIES, train=DIST_FAMILY_TRAIN)
     return acc
 
 
+# ---------------------------------------------------------------------------
+# The dryrun path: the port's dry-run tools (launch.dryrun on meta tensors
+# under the fake process-group backend, no card) on two production cells,
+# and their prediction of the dist_lm train cell against a real step on the
+# (1, 1) nccl mesh of the dist phase.
+# ---------------------------------------------------------------------------
+
+DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k"), ("kimi-k2-1t-a32b", "decode_32k"))
+DRYRUN_TIMEOUT = 120        # seconds a dry-run subprocess may take
+DRYRUN_STEPS = 3            # timed sharded steps of the dist_lm cell, after one
+# The dist_lm train cell's prediction: the dry run's parts composed on a
+# fake world of one rank, as the JAX suite's test_mini_dryrun_in_process
+# composes JAX's; prints one JSON line.
+DRYRUN_PREDICT = """
+import json, sys
+import repro_torch.configs as C
+from repro_torch.dist import sharding as TS
+from repro_torch.launch import analytic as A, dryrun as D, roofline as R
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.shapes import ShapeSpec
+arch, B, S = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+cfg = C.get(arch)
+with D.fake_world(1):
+    mesh = make_production_mesh(mesh_shape=(1, 1))
+    pol = TS.Policy.recommended(cfg, mesh, "train")
+    p = D.predict(cfg, ShapeSpec("dist_lm", S, B, "train"), mesh, pol, remat="none")
+    af = A.step_flops(cfg, "train", S, B, "none")
+    ab = A.step_bytes(cfg, "train", S, B, opt_bytes_per_param=12)
+    roof = R.analyze(p["records"], p["traced_flops"], mesh, 1, p["trip_hints"],
+                     af["step_flops"], ab["step_bytes"])
+useful = R.model_flops(cfg, B * S)["model_flops_6ND"]
+bound = max(roof.t_compute, roof.t_mem, roof.t_coll, roof.t_coll_wire)
+print(json.dumps({"policy": str(pol), "roofline": roof.to_dict(), "useful_flops": useful,
+                  "roofline_fraction": useful / (R.PEAK_FLOPS * bound),
+                  **{k: p[k] for k in ("lower_s", "compile_s", "argument_size_in_bytes",
+                                       "argument_bytes_by_input", "temp_size_in_bytes")}}))
+"""
+
+
+def dryrun_spawn(args: list, out_dir: Path) -> subprocess.Popen:
+    """A dry-run subprocess: no card visible (the fake backend and ``meta``
+    tensors need none), the checkout's ``src`` on the path."""
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
+           "PYTHONPATH": str(root / "src")}
+    out_dir.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen([sys.executable] + args, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env, cwd=root)
+
+
+def dryrun_wait(proc: subprocess.Popen, what: str) -> str:
+    """The subprocess's output once it ends with code 0 within
+    DRYRUN_TIMEOUT (killed otherwise)."""
+    try:
+        out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise RuntimeError(f"chip_smoke: {what} took over {DRYRUN_TIMEOUT} s")
+    check(proc.returncode == 0, f"{what} exits 0 ({out[-2000:]})")
+    return out
+
+
+def dryrun_path(device, arch, mesh) -> dict:
+    """The dryrun path (docstring item 9f) on ``arch``'s dist_lm cell.
+    Returns the prediction and the measured step."""
+    import repro_torch.configs as C
+    from types import SimpleNamespace
+
+    from repro_torch.dist import sharding as TS
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import roofline as R
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, init_opt
+    from repro_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_dryrun"
+    cells = [(arch, shape, out_dir / f"{arch}__{shape}.json",
+              dryrun_spawn(["-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+                            "--auto-policy", "--out", str(out_dir / f"{arch}__{shape}.json")],
+                           out_dir)) for arch, shape in DRYRUN_CELLS]
+    B, S = TRAIN_B, TRAIN_S
+    pred_proc = dryrun_spawn(["-c", DRYRUN_PREDICT, arch, str(B), str(S)], out_dir)
+    cfg = C.get(arch)
+
+    # the real step of the cell on the card, while the dry runs trace
+    pol = TS.Policy.recommended(cfg, mesh, "train")
+    model = TS.distribute_params(
+        init_params(cfg, torch.Generator(device=device).manual_seed(0), device,
+                    param_dtype=torch.float32).requires_grad_(), mesh, pol)
+    oc = AdamWConfig(total_steps=100, warmup_steps=5)
+    opt = init_opt(oc, model)
+    g = torch.Generator(device=device).manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (B, S), generator=g, device=device,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+    real = D.input_bytes(SimpleNamespace(groups={"params": model, "opt": opt, "batch": batch}))
+    step = make_train_step(cfg, oc, remat="none")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(DRYRUN_STEPS + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(model, opt, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    grown = torch.cuda.max_memory_allocated() - base
+    ms = statistics.median(times[1:])
+    del model, opt, batch
+    free_cuda()
+
+    for arch, shape, path, proc in cells:
+        dryrun_wait(proc, f"dry run of {arch} {shape}")
+        rec = json.loads(path.read_text())
+        check(rec["status"] == "ok", f"dry run of {arch} {shape}: status ok")
+        rf = rec["roofline"]
+        check(all(math.isfinite(rf[k]) and rf[k] > 0 for k in ("t_compute_s", "t_mem_s",
+                                                                "t_coll_s")),
+              f"dry run of {arch} {shape}: finite, positive roofline terms")
+        print(f"dryrun {arch} {shape} pod1 ({rec['chips']} GPUs, {rec['mesh']}, auto policy "
+              f"{rec['policy']}): status {rec['status']}, lower_s {rec['lower_s']:.3f}, "
+              f"compile_s {rec['compile_s']:.3f}; a rank: arguments "
+              f"{rec['argument_size_in_bytes']} B {rec['argument_bytes_by_input']}, temp "
+              f"{rec['temp_size_in_bytes']} B; t_compute {rf['t_compute_s']:.6g} s, t_mem "
+              f"{rf['t_mem_s']:.6g} s, t_coll {rf['t_coll_s']:.6g} s (wire "
+              f"{rf['t_coll_wire_s']:.6g} s), dominant {rf['dominant']} (H100 SXM datasheet "
+              f"constants)", flush=True)
+
+    pred = json.loads(dryrun_wait(pred_proc, "dist_lm cell prediction").strip().splitlines()[-1])
+    rf = pred["roofline"]
+    check(pred["argument_bytes_by_input"] == real,
+          f"dryrun: predicted argument bytes a rank {pred['argument_bytes_by_input']} == the "
+          f"card state's {real}")
+    floor_ms = max(rf["t_compute_s"], rf["t_mem_s"]) * 1e3
+    check(ms >= floor_ms, f"dryrun: measured step {ms:.3f} ms >= max(t_compute, t_mem) "
+          f"{floor_ms:.3f} ms")
+    args_b = pred["argument_size_in_bytes"]
+    print(f"dryrun dist_lm cell ({cfg.name}, {B} x {S}, remat none, {pred['policy']}, (1, 1) "
+          f"mesh): predicted argument bytes a rank {args_b} == the card state's "
+          f"{sum(real.values())} ({real}); measured step {ms:.3f} ms (median of "
+          f"{DRYRUN_STEPS} after one, host clock, synchronized) >= max(t_compute "
+          f"{rf['t_compute_s'] * 1e3:.3f}, t_mem {rf['t_mem_s'] * 1e3:.3f}) ms, t_coll "
+          f"{rf['t_coll_s'] * 1e3:.3f} ms; predicted peak (arguments + temp) "
+          f"{(args_b + pred['temp_size_in_bytes']) / 2**30:.3f} GiB beside the measured "
+          f"{(sum(real.values()) + grown) / 2**30:.3f} GiB (state + the step's "
+          f"max_memory_allocated growth {grown / 2**30:.3f} GiB); roofline_fraction "
+          f"{pred['roofline_fraction']:.4f} predicted, the measured step's "
+          f"{pred['useful_flops'] / (R.PEAK_FLOPS * ms / 1e3):.4f}; prediction traced in "
+          f"{pred['lower_s'] + pred['compile_s']:.3f} s; path "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    return {"ms": ms, "prediction": pred, "real_bytes": real, "grown": grown}
+
+
 def run(build_s: float) -> dict:
     """The whole smoke run on the card (``build_s``: the kernel library's
     build time); returns the kernels record."""
@@ -4001,6 +4169,7 @@ def run(build_s: float) -> dict:
     for name in ("cdf_scan", "forest_delta", "forest_sample", "forest_pack", "sample_rows",
                  "flash_attention"):
         check(counts["dist_families"][name] > 0, f"{name} launched on the dist_families path")
+    counted("dryrun", dryrun_path, device, TRAIN_ARCH, mesh)
 
     profiled("main", main_path, device, weights, m, n_draws, gen)
     profiled("dist", dist_path, device, weights, m, n_draws, gen)

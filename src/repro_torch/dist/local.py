@@ -38,7 +38,8 @@ and its output is a partial sum over the split dims.
 
 The few DTensor helpers the model, the optimizer and the serve step share
 live here too: :func:`whole`, :func:`replicate`, :func:`gather_dim`,
-:func:`embedding_table` and :func:`local_pick`.
+:func:`embedding_lookup` (each rank's own tokens), :func:`residual` (the
+stream keeps its placements), :func:`split_heads` and :func:`local_pick`.
 """
 from __future__ import annotations
 
@@ -74,16 +75,88 @@ def gather_dim(t, d: int):
     return t.redistribute(t.device_mesh, pl)
 
 
-def embedding_table(emb: torch.Tensor) -> torch.Tensor:
-    """The (V, D) table as DTensor's lookup takes it: its masked lookup
-    takes the vocabulary sharded over one mesh dim, and over two it raises
-    (torch 2.13), so then the vocabulary is gathered. A plain table as
-    is."""
-    from torch.distributed.tensor import DTensor, Shard
+def embedding_table(emb: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+    """The (V, D) table as DTensor's lookup takes it: on each mesh dim that
+    shards the tokens ``tok`` (their batch) the table is gathered, so the
+    rows come out sharded as the tokens are (DTensor's lookup would gather
+    the tokens instead, and every rank would run the whole batch); its
+    masked lookup takes the vocabulary sharded over one mesh dim, and over
+    two it raises (torch 2.13), so then the vocabulary is gathered. A plain
+    table as is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
 
-    if isinstance(emb, DTensor) and sum(p == Shard(0) for p in emb.placements) > 1:
-        return gather_dim(emb, 0)
-    return emb
+    if not isinstance(emb, DTensor):
+        return emb
+    pl = list(emb.placements)
+    if isinstance(tok, DTensor):
+        pl = [Replicate() if pt.is_shard() else pe for pe, pt in zip(pl, tok.placements)]
+    if sum(p == Shard(0) for p in pl) > 1:
+        pl = [Replicate() if p == Shard(0) else p for p in pl]
+    return emb if pl == list(emb.placements) else emb.redistribute(emb.device_mesh, pl)
+
+
+def residual(x, y):
+    """``x + y`` for the residual stream ``x`` and a block's output ``y``:
+    a DTensor ``y`` (a partial sum, say) is first brought to ``x``'s
+    placements, so the stream keeps its placements through the stack as
+    GSPMD keeps the residual's sharding (DTensor's add would otherwise
+    reduce-scatter a partial ``y`` onto the sequence and shard the stream
+    there, which the planner of a 3-D mesh then redistributes by a costly
+    search)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor) and isinstance(y, DTensor) and y.placements != x.placements:
+        y = y.redistribute(x.device_mesh, x.placements)
+    return x + y
+
+
+def split_heads(t, n: int, hd: int):
+    """``t`` (B, S, n * hd) as (B, S, n, hd). A DTensor whose last dim is
+    sharded by mesh dims that do not split the ``n`` heads evenly (DTensor
+    may shard a projection's output over a dim that replicates the weight,
+    e.g. Whisper's 12 heads over a model dim of 8) is gathered over them
+    first: such a view raises."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if isinstance(t, DTensor):
+        last = Shard(t.dim() - 1)
+        dims = [i for i, p in enumerate(t.placements) if p == last]
+        if n % math.prod(t.device_mesh.size(i) for i in dims):
+            t = t.redistribute(t.device_mesh, [Replicate() if i in dims else p
+                                               for i, p in enumerate(t.placements)])
+    return t.view(*t.shape[:-1], n, hd)
+
+
+def embedding_lookup(emb: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+    """``emb[tok]``: the (B, S, D) rows of table ``emb`` (V, D) at ``tok``
+    (B, S). Over DTensors the table is :func:`embedding_table`'s and each
+    rank looks up its own tokens, as GSPMD runs the gather: the rows come
+    out placed as the tokens are (DTensor's own lookup would gather the
+    tokens and run the whole batch on every rank). On a mesh dim that
+    shards the vocabulary each rank reads the rows it holds, zeroes the
+    others, and the rows are summed over that dim, so they come out whole
+    in ``D`` (DTensor's would move the table to shard ``D``, and the
+    projections after it would then run every head on every rank). The
+    table's gradient is a partial sum over the dims that shard the
+    tokens."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    table = embedding_table(emb, tok)
+    if not isinstance(tok, DTensor) or not isinstance(table, DTensor):
+        return table[tok]
+    mesh = table.device_mesh
+    grads = [Partial() if pt.is_shard() else pe for pe, pt in zip(table.placements, tok.placements)]
+    tl, il = table.to_local(grad_placements=grads), tok.to_local()
+    pl = [pt if pt.is_shard() else Shard(2) if pe == Shard(1) else Replicate()
+          for pe, pt in zip(table.placements, tok.placements)]
+    shape = (*tok.shape, table.shape[1])
+    if all(p != Shard(0) for p in table.placements):
+        return _wrap(tl[il], mesh, pl, shape)
+    v0 = _offsets(table)[0]
+    keep = (il >= v0) & (il < v0 + tl.shape[0])
+    xl = tl[(il - v0).clamp(0, tl.shape[0] - 1)] * keep[..., None].to(tl.dtype)
+    partial = [Partial() if pe == Shard(0) else p for pe, p in zip(table.placements, pl)]
+    return _wrap(xl, mesh, partial, shape).redistribute(mesh, pl)
 
 
 def local_pick(lg, idx):
@@ -240,6 +313,44 @@ def local_decode_attention(core, q, k, v, ck, cv, pos: torch.Tensor):
     keep = (s0 + torch.arange(kh.shape[1], device=ql.device))[None] <= pl[:, None]
     o = _seq_sharded_attention(ql, kh, vh, keep, [mesh.get_group(i) for i in seq])
     return _wrap(o, mesh, qp, q.shape)
+
+
+@torch.no_grad()
+def write_prefix(dst: torch.Tensor, t: torch.Tensor) -> None:
+    """Write ``t`` (B, Sq, ...) into positions ``:Sq`` of the cache view
+    ``dst`` (B, S, ...), in place: into a DTensor ``dst`` by each rank's own
+    shard (``t``, plain or a DTensor, brought to ``dst``'s placements; where
+    ``dst`` shards the positions and ``Sq < S`` they are gathered, and each
+    rank writes the prompt's part of its slice), into a plain ``dst``
+    whole."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    Sq, S = t.shape[1], dst.shape[1]
+    if not isinstance(dst, DTensor):
+        dst[:, :Sq] = whole(t).to(dst.dtype)
+        return
+    mesh = dst.device_mesh
+    if not isinstance(t, DTensor):
+        t = replicate(t, mesh)
+    pl = [Replicate() if p == Shard(1) and Sq != S else p for p in dst.placements]
+    tl, dl = t.redistribute(mesh, pl).to_local(), dst.to_local()
+    s0 = _offsets(dst)[1]
+    n = min(dl.shape[1], Sq - s0)
+    if n > 0:
+        dl[:, :n] = tl[:, s0:s0 + n].to(dl.dtype) if Sq != S else tl.to(dl.dtype)
+
+
+def write_state(dst: torch.Tensor, t: torch.Tensor) -> None:
+    """Write state ``t`` into the cache view ``dst`` of its shape, in place:
+    into a DTensor ``dst`` by each rank's own shard (``t`` brought to its
+    placements), into a plain ``dst`` whole."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(dst, DTensor):
+        if not isinstance(t, DTensor):
+            t = replicate(t, dst.device_mesh)
+        dst, t = dst.to_local(), t.redistribute(dst.device_mesh, dst.placements).to_local()
+    dst.copy_(whole(t))
 
 
 class Split:

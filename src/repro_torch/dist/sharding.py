@@ -346,7 +346,8 @@ def batch_placements(t: torch.Tensor, key: str, cfg: ModelConfig, mesh, pol: Pol
 
 
 def place_batch(model, t: torch.Tensor, key: str) -> torch.Tensor:
-    """Batch tensor ``t`` (the same on every rank; ``key`` one of
+    """Batch tensor ``t`` (plain and the same on every rank, or a DTensor
+    already placed, as a step's sharded inputs are; ``key`` one of
     ``batch_specs``' keys) as a DTensor placed by the policy when ``model``
     is distributed (:func:`distribute_params`), else as is. The model
     passes every tensor that meets a parameter through here (batches,
@@ -356,10 +357,15 @@ def place_batch(model, t: torch.Tensor, key: str) -> torch.Tensor:
     st = getattr(model, "dist_state", None)
     if st is None:
         return t
+    from torch.distributed.tensor import DTensor
+
     from .local import replicate
 
     mesh, pol = st
-    return replicate(t, mesh).redistribute(mesh, batch_placements(t, key, model.cfg, mesh, pol))
+    if not isinstance(t, DTensor):
+        t = replicate(t, mesh)
+    pl = batch_placements(t, key, model.cfg, mesh, pol)
+    return t if list(t.placements) == pl else t.redistribute(mesh, pl)
 
 
 def cache_spec_tree(cfg: ModelConfig, cache: Any, pol: Policy, mesh) -> Any:
@@ -396,6 +402,23 @@ def distribute_cache(cfg: ModelConfig, cache: dict, mesh, pol: Policy) -> dict:
     specs = cache_spec_tree(cfg, cache, pol, mesh)
     return {b: {n: distribute_tensor(x, mesh, placements(specs[b][n], mesh))
                 for n, x in c.items()} for b, c in cache.items()}
+
+
+def zeros_cache(cfg: ModelConfig, cache: dict, mesh, pol: Policy, device) -> dict:
+    """A zero cache of ``cache``'s structure, shapes and dtypes (``meta``
+    leaves will do) as DTensors placed by :func:`cache_spec_tree` on
+    ``device``, each rank allocating only its own shard."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    def zeros(x, spec):
+        pl = placements(spec, mesh)
+        local, _ = compute_local_shape_and_global_offset(x.shape, mesh, pl)
+        return DTensor.from_local(torch.zeros(local, dtype=x.dtype, device=device), mesh, pl,
+                                  run_check=False, shape=x.shape, stride=x.stride())
+
+    specs = cache_spec_tree(cfg, cache, pol, mesh)
+    return {b: {n: zeros(x, specs[b][n]) for n, x in c.items()} for b, c in cache.items()}
 
 
 @dataclasses.dataclass(frozen=True)

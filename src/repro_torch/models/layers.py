@@ -24,7 +24,13 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor
 
-from repro_torch.dist.local import NEG_INF, local_attention, local_decode_attention, replicate
+from repro_torch.dist.local import (
+    NEG_INF,
+    local_attention,
+    local_decode_attention,
+    replicate,
+    split_heads,
+)
 from repro_torch.kernels import ops
 
 from .config import ModelConfig
@@ -140,16 +146,15 @@ class Attention(nn.Module):
         """x (B, S, D), positions (B, S) -> roped q (B, S, H, hd), roped k
         and v (B, S, KV, hd)."""
         cfg = self.cfg
-        B, S, _ = x.shape
         dt = x.dtype
         q = F.linear(x, self.wq.to(dt))
         k = F.linear(x, self.wk.to(dt))
         v = F.linear(x, self.wv.to(dt))
         if cfg.qkv_bias:
             q, k, v = q + self.bq.to(dt), k + self.bk.to(dt), v + self.bv.to(dt)
-        q = q.view(B, S, cfg.n_heads, cfg.hd)
-        k = k.view(B, S, cfg.n_kv_heads, cfg.hd)
-        v = v.view(B, S, cfg.n_kv_heads, cfg.hd)
+        q = split_heads(q, cfg.n_heads, cfg.hd)
+        k = split_heads(k, cfg.n_kv_heads, cfg.hd)
+        v = split_heads(v, cfg.n_kv_heads, cfg.hd)
         if cfg.qk_norm:
             q, k = self.q_norm(q), self.k_norm(k)
         return (apply_rope(q, positions, cfg.rope_theta),
@@ -211,10 +216,9 @@ def encoder_kv(p: Attention, cfg: ModelConfig, enc_out: torch.Tensor):
     """Cross-attention keys and values of an encoder output (B, S_enc, D):
     ``k``/``v`` (B, S_enc, KV, hd), no bias and no RoPE, ``k`` qk-normed
     where the config says so (JAX ``layers.encoder_kv``)."""
-    B, S, _ = enc_out.shape
     dt = enc_out.dtype
-    k = F.linear(enc_out, p.wk.to(dt)).view(B, S, cfg.n_kv_heads, cfg.hd)
-    v = F.linear(enc_out, p.wv.to(dt)).view(B, S, cfg.n_kv_heads, cfg.hd)
+    k = split_heads(F.linear(enc_out, p.wk.to(dt)), cfg.n_kv_heads, cfg.hd)
+    v = split_heads(F.linear(enc_out, p.wv.to(dt)), cfg.n_kv_heads, cfg.hd)
     if cfg.qk_norm:
         k = p.k_norm(k)
     return k, v
@@ -224,8 +228,7 @@ def cross_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor, enc_kv) -> 
     """Non-causal attention of x (B, S, D) over ``encoder_kv``'s keys and
     values: q without bias or RoPE (qk-normed where the config says so),
     the materialized ``_sdpa`` as JAX ``layers.cross_attention``."""
-    B, S, _ = x.shape
-    q = F.linear(x, p.wq.to(x.dtype)).view(B, S, cfg.n_heads, cfg.hd)
+    q = split_heads(F.linear(x, p.wq.to(x.dtype)), cfg.n_heads, cfg.hd)
     if cfg.qk_norm:
         q = p.q_norm(q)
     k, v = enc_kv

@@ -47,7 +47,7 @@ from torch.utils.checkpoint import (
 from repro_torch.device import resolve, to_device
 from repro_torch.dist import hints as H
 from repro_torch.dist import local as L
-from repro_torch.dist.sharding import place_batch
+from repro_torch.dist.sharding import place_batch, zeros_cache
 
 from . import moe as M
 from . import ssm as S
@@ -136,14 +136,14 @@ class Period(nn.Module):
         None)."""
         if _cross(cfg, self.kinds[i]):
             xa = self.sub("x", i)
-            x = x + cross_attention(xa, cfg, self.sub("ln_x", i)(x),
-                                    encoder_kv(xa, cfg, enc_out))
+            x = L.residual(x, cross_attention(xa, cfg, self.sub("ln_x", i)(x),
+                                              encoder_kv(xa, cfg, enc_out)))
         mk = _mlp_kind(cfg, i)
         if mk == "dense":
-            return x + self.sub("m", i)(self.sub("ln_m", i)(x)), None
+            return L.residual(x, self.sub("m", i)(self.sub("ln_m", i)(x))), None
         if mk == "moe":
             y, aux = M.moe(self.sub("m", i), cfg, self.sub("ln_m", i)(x))
-            return x + y, aux
+            return L.residual(x, y), aux
         return x, None
 
     def forward(self, x: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig, enc_out=None):
@@ -159,7 +159,7 @@ class Period(nn.Module):
                 y = b(h, pos, causal=cfg.causal, attn_impl=cfg.attn_impl)
             else:
                 y = _SEQUENCE[kind](b, cfg, h)
-            x, a = pp.tail(i, x + y, cfg, enc_out)
+            x, a = pp.tail(i, L.residual(x, y), cfg, enc_out)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -323,7 +323,7 @@ def _embed_in(params: LM, cfg: ModelConfig, batch: dict) -> torch.Tensor:
         x = to_device(batch["embeds"], params.device).to(_dtype(cfg))
         return place_batch(params, x, "embeds")
     tok = place_batch(params, to_device(batch["tokens"], params.device).long(), "tokens")
-    return L.embedding_table(params.embed).to(_dtype(cfg))[tok]
+    return L.embedding_lookup(params.embed.to(_dtype(cfg)), tok)
 
 
 def _pick(lg: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -353,8 +353,8 @@ def encode(params: LM, cfg: ModelConfig, frames) -> torch.Tensor:
                       "frames")
     for layer in params.encoder:
         layer = H.gather_params(layer)
-        x = x + layer.attn(layer.ln_a(x), pos, causal=False, attn_impl=cfg.attn_impl)
-        x = x + layer.mlp(layer.ln_m(x))
+        x = L.residual(x, layer.attn(layer.ln_a(x), pos, causal=False, attn_impl=cfg.attn_impl))
+        x = L.residual(x, layer.mlp(layer.ln_m(x)))
     return params.enc_norm(x)
 
 
@@ -426,17 +426,10 @@ def loss_fn(params: LM, cfg: ModelConfig, batch: dict, remat: str = "none"):
 
 
 def _put(c: dict, p: int, state: dict) -> None:
-    """Write one period's new recurrent state into the stacked cache: a
-    DTensor state into a DTensor cache's local shard at the cache's
-    placements, into a plain cache whole."""
+    """Write one period's new recurrent state into the stacked cache
+    (``dist.local.write_state``: a DTensor cache by each rank's shard)."""
     for name, t in state.items():
-        dst = c[name][p]
-        if isinstance(t, DTensor):
-            if isinstance(dst, DTensor):
-                dst, t = dst.to_local(), t.redistribute(dst.device_mesh, dst.placements).to_local()
-            else:
-                t = t.full_tensor()
-        dst.copy_(t)
+        L.write_state(c[name][p], t)
 
 
 @torch.no_grad()
@@ -446,7 +439,8 @@ def prefill(params: LM, cfg: ModelConfig, batch: dict, max_seq: int):
     return (last-position logits (B, V), a fresh decode cache holding the
     prompt's keys and values and each recurrent block's state after the
     prompt, the encoder output or ``None``). A distributed model returns
-    a plain (whole) cache; ``dist.sharding.distribute_cache`` places it."""
+    the cache placed by ``dist.sharding.cache_spec_tree`` under its policy,
+    each rank holding and writing only its own shard."""
     x = _embed_in(params, cfg, batch)
     B, Sq, _ = x.shape
     if Sq > max_seq:
@@ -454,7 +448,9 @@ def prefill(params: LM, cfg: ModelConfig, batch: dict, max_seq: int):
     pos = place_batch(params, torch.arange(Sq, device=x.device)[None].expand(B, Sq), "tokens")
     keep = causal_keep(Sq, Sq, x.device) if cfg.causal else None
     enc_out = encode(params, cfg, batch["frames"]) if cfg.encoder_layers else None
-    cache = init_cache(cfg, B, max_seq, x.device)
+    st = getattr(params, "dist_state", None)
+    cache = (init_cache(cfg, B, max_seq, x.device) if st is None else
+             zeros_cache(cfg, init_cache(cfg, B, max_seq, "meta"), *st, x.device))
     for p, period in enumerate(params.layers):
         period = H.gather_params(period)
         for i, kind in enumerate(period.kinds):
@@ -463,13 +459,14 @@ def prefill(params: LM, cfg: ModelConfig, batch: dict, max_seq: int):
             if kind == "attn":
                 q, k, v = b.qkv(h, pos)
                 y = b.out(attend(lambda q, k, v: _sdpa(q, k, v, keep), q, k, v))
-                c["k"][p, :, :Sq] = L.whole(k)
-                c["v"][p, :, :Sq] = L.whole(v)
-                c["len"][p] = Sq
+                L.write_prefix(c["k"][p], k)
+                L.write_prefix(c["v"][p], v)
+                L.write_state(c["len"][p], torch.full((), Sq, dtype=torch.int32,
+                                                      device=x.device))
             else:
                 y, state = _PREFILL[kind](b, cfg, h)
                 _put(c, p, state)
-            x, _ = period.tail(i, x + y, cfg, enc_out)
+            x, _ = period.tail(i, L.residual(x, y), cfg, enc_out)
     return _head(params, cfg, x[:, -1:])[:, 0], cache, enc_out
 
 
@@ -481,10 +478,12 @@ def decode_step(params: LM, cfg: ModelConfig, cache: dict, token, pos, enc_out=N
     ``0..pos[b]``; recurrent blocks step their state (in place);
     cross-attention reads ``enc_out`` (the encoder output of ``prefill``).
     With a distributed model the cache may be placed by
-    ``dist.sharding.distribute_cache``: each rank writes its own shard."""
+    ``dist.sharding.distribute_cache``: each rank writes its own shard;
+    ``token`` and ``pos`` may be DTensors sharded over the batch, as a
+    step's inputs are placed."""
     dev = params.device
     token = to_device(token, dev)
-    pos = to_device(pos, dev).long()
+    pos = L.whole(to_device(pos, dev).long())   # every rank indexes its rows by it
     if cfg.frontend == "embed" and token.dim() == 3:
         x = place_batch(params, token.to(_dtype(cfg)), "embeds")
     else:
@@ -499,7 +498,7 @@ def decode_step(params: LM, cfg: ModelConfig, cache: dict, token, pos, enc_out=N
             else:
                 y, state = _DECODE[kind](b, cfg, h, {n: t[p] for n, t in c.items()})
                 _put(c, p, state)
-            x, _ = period.tail(i, x + y, cfg, enc_out)
+            x, _ = period.tail(i, L.residual(x, y), cfg, enc_out)
     for c in cache.values():
         if "len" in c:
             c["len"] += 1

@@ -70,14 +70,16 @@ def make_serve_step(cfg: ModelConfig, temperature: float = 1.0):
     """Returns ``serve_step(params, cache, token, pos, xi[, enc_out]) ->
     (next_token (B,) int32, cache)``. ``xi``: one uniform per row (B,), e.g.
     from the per-slot QMC streams, which keep the monotone warp stratified;
-    ``enc_out``: the encoder output of the prefill, for an encoder-decoder."""
+    ``enc_out``: the encoder output of the prefill, for an encoder-decoder.
+    With a distributed model the inputs may be DTensors sharded over the
+    batch; the sampler takes whole rows and uniforms."""
 
     @torch.no_grad()
     def serve_step(params, cache, token, pos, xi, enc_out=None):
         logits, cache = model_decode(params, cfg, cache, token, pos, enc_out)
         logits = whole(logits)   # the sampler's kernels take the whole rows
         cdf = ops.fused_cdf(logits / temperature, softmax=True)
-        xi = to_device(xi, logits.device, torch.float32)
+        xi = whole(to_device(xi, logits.device, torch.float32))
         return ops.sample_rows(cdf, xi[:, None])[:, 0], cache
 
     return serve_step

@@ -26,7 +26,8 @@ deterministic algorithms; B10 on a rank's local query heads at a nonzero
 head offset; and the LM's dist layer on a (1, 1) mesh over a single-rank
 nccl group (DTensor parameters, hints, a placed decode cache): train steps,
 the hinted flash forward and decode steps bit for bit the unsharded
-model's.
+model's; and the dry run's per-rank argument bytes (``launch.dryrun`` on
+``meta`` tensors) equal to those of the same state on the card.
 """
 from pathlib import Path
 
@@ -1365,6 +1366,44 @@ def test_dist_lm_train_step_on_one_rank_is_bitwise(cuda, nccl_mesh):
         assert torch.equal(whole(so.m[k]), po.m[k]) and torch.equal(whole(so.v[k]), po.v[k])
 
 
+def test_dryrun_argument_bytes_equal_the_card_state(cuda, tmp_path):
+    """The dry run's per-rank argument bytes of a train cell (a fake world
+    of one rank, ``meta`` tensors, the one- and two-period states
+    extrapolated) equal the bytes of the same state on the card:
+    parameters, AdamW moments and step, and the int32 batch, placed by
+    ``Policy.recommended`` on a (1, 1) nccl mesh."""
+    from types import SimpleNamespace
+
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding as TS
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models import init_params
+    from repro_torch.train import AdamWConfig, init_opt
+
+    cfg, sh = _dist_lm_cfg(), ShapeSpec("t", 128, 4, "train")
+    with D.fake_world(1):
+        mesh = make_production_mesh(mesh_shape=(1, 1))
+        want = D.argument_bytes(cfg, sh, mesh, TS.Policy.recommended(cfg, mesh, "train"))
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, device=cuda)
+        model = TS.distribute_params(
+            init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda,
+                        param_dtype=torch.float32).requires_grad_(),
+            mesh, TS.Policy.recommended(cfg, mesh, "train"))
+        batch = {k: torch.zeros(sh.global_batch, sh.seq_len, dtype=torch.int32, device=cuda)
+                 for k in ("tokens", "labels")}
+        state = SimpleNamespace(groups={"params": model, "opt": init_opt(AdamWConfig(), model),
+                                        "batch": batch})
+        assert D.input_bytes(state) == want
+    finally:
+        dist.destroy_process_group()
+
+
 def test_dist_lm_hinted_flash_and_decode_on_one_rank(cuda, nccl_mesh):
     """The hinted flash eval forward (B10 through the local-heads wrapper)
     and four ``make_serve_step`` steps (B3, B9) on a cache placed by
@@ -1473,7 +1512,7 @@ def test_dist_families_on_one_rank_are_bitwise(cuda, nccl_mesh, arch):
         assert torch.equal(whole(dl), logits)
         for b_, c in cache.items():
             for k, t in c.items():
-                assert torch.equal(dc[b_][k], t), (pol, b_, k)
+                assert torch.equal(whole(dc[b_][k]), t), (pol, b_, k)
         want = {b_: {k: t.clone() for k, t in c.items()} for b_, c in cache.items()}
         got = TS.distribute_cache(cfg, {b_: {k: t.clone() for k, t in c.items()}
                                         for b_, c in cache.items()}, nccl_mesh, pol)

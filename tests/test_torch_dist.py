@@ -64,9 +64,13 @@ from repro_torch.models import decode_step, forward, init_cache, init_params, pr
 from repro_torch.models.layout import _to_port
 from repro_torch.train import AdamWConfig, TrainConfig, Trainer, init_opt
 from repro_torch.train.step import make_train_step
+from _torch_threads import one_torch_thread  # noqa: F401 (pytestmark uses it)
 
 # Start JAX's backend at collection (see tests/test_torch_cdf_forest.py).
 jax.devices()
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 MESHES = [{"data": 4, "model": 2}, {"pod": 2, "data": 16, "model": 16}]
 
@@ -477,9 +481,15 @@ def test_train_decode_and_resume_on_one_rank(group_of_one, tmp_path):
     for bk, c in cache.items():
         for n, t in c.items():
             assert torch.equal(whole(dcache[bk][n]), t), (bk, n)
-    # prefill of the distributed model equals the plain one
+    # prefill of the distributed model equals the plain one, its cache placed
     dl, dc, _ = prefill(dm, cfg, {"tokens": tok}, max_seq=16)
-    assert torch.equal(whole(dl), prefill(plain, cfg, {"tokens": tok}, max_seq=16)[0])
+    pl, pc, _ = prefill(plain, cfg, {"tokens": tok}, max_seq=16)
+    assert torch.equal(whole(dl), pl)
+    specs = TS.cache_spec_tree(cfg, pc, pol, mesh)
+    for bk, c in pc.items():
+        for n, t in c.items():
+            assert list(dc[bk][n].placements) == TS.placements(specs[bk][n], mesh), (bk, n)
+            assert torch.equal(whole(dc[bk][n]), t), (bk, n)
 
     # restore(shardings=): a saved tree comes back as DTensors of its values
     from torch.distributed.tensor import DTensor, Replicate

@@ -41,6 +41,10 @@ from repro_torch.models import decode_step, forward, init_params, loss_fn, prefi
 from repro_torch.models.layout import leaf_map, stacked
 from repro_torch.serve import Request, ServeEngine, TokenSampler
 from test_torch_serve import _check_outputs, _compare_calls, _jax_scan, _port_scan, _Recorder
+from _torch_threads import one_torch_thread  # noqa: F401 (pytestmark uses it)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 # Start JAX's backend at collection (see tests/test_torch_cdf_forest.py).
 jax.devices()

@@ -58,6 +58,10 @@ from repro_torch.models.ssm import ssm_scan
 from repro_torch.train import AdamWConfig, apply_updates, init_opt
 from repro_torch.train.optimizer import decays, schedule
 from repro_torch.train.step import loss_and_grads
+from _torch_threads import one_torch_thread  # noqa: F401 (pytestmark uses it)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 
 # Start JAX's backend at collection (see tests/test_torch_cdf_forest.py).
 jax.devices()
