@@ -20,6 +20,14 @@ the ignored ``build/`` directory), then:
    the plain CPU build from the same CDF bits, every draw's bracket, and a
    chi-square test; serves 8 ``ForestSampler.sample`` calls with duplicate
    slots and checks them against ``sample_binary`` at the same QMC points;
+   3a. the examples path (``examples_path``): the seven walkthroughs
+   ``examples/torch_*.py`` on the card, one after another, each in its own
+   process (``EXAMPLE_RUNNER``: JAX and the JAX package unimportable, the
+   run under torch.profiler), at their default sizes but
+   ``torch_train_lm.py``'s 40 of 300 steps; a line each with its exit code,
+   wall seconds and last lines; every example must exit 0 (each asserts
+   what its JAX twin asserts), and the kernels they launch, counted and
+   timed in their processes, are the path's;
 4. runs the paper's workloads on the card (``benchmarks/torch_table1.py``
    and ``benchmarks/torch_convergence.py``: Table 1's load counts, the 1-D
    convergence up to 2^18 points, the 2-D one on ``env_map_2d(128, 256)``
@@ -188,13 +196,15 @@ the ignored ``build/`` directory), then:
    reject; a 4K ``SpatialSampler`` and a model-backed ``ServeEngine``
    (Qwen1.5-0.5B, 16 slots, KV cache) saved mid-flight through disk, their
    next drains and tokens equal to the originals';
-10. prints the kernels line (launch counts from the runs of steps 3, 3b, 4,
-   5, 6, 7b, 8, 9's eval and train paths, 9b, 9c, 9d and 9e, each with every
-   count set to 0 just before it; each kernel's launches and summed device
-   time on each of the thirteen paths, main, dist, paper, map2d, pool,
-   robust, serve, eval, train, families, families_train, dist_lm and
-   dist_families: the time from torch.profiler, CUDA activity only, by the
-   kernels' symbols, around a second counted run of each path (of train
+10. prints the kernels line (launch counts from the runs of steps 3, 3a, 3b,
+   4, 5, 6, 7b, 8, 9's eval and train paths, 9b, 9c, 9d and 9e, each with
+   every count set to 0 just before it (3a's in each example's own
+   process); each kernel's launches and summed device time on each of the
+   fourteen paths, main, examples, dist, paper, map2d, pool, robust, serve,
+   eval, train, families, families_train, dist_lm and dist_families: the
+   time from torch.profiler, CUDA activity only, by the kernels' symbols,
+   around a second counted run of each path (of examples, the one run in
+   each example's process; of train
    and families_train, a replay of their mixtures and batches; of dist_lm,
    the path without its train steps: those steps launch none of the port's
    kernels; of dist_families, its own profiler windows in its one run) at
@@ -591,8 +601,8 @@ KERNEL_SYMBOLS = {
     "sample_rows": ("sample_rows_kernel",),
     "flash_attention": ("flash_attention_f32_tf32x3", "flash_attention_bf16_wgmma"),
 }
-PATHS = ("main", "dist", "paper", "map2d", "pool", "robust", "serve", "eval", "train",
-         "families", "families_train", "dist_lm", "dist_families")
+PATHS = ("main", "examples", "dist", "paper", "map2d", "pool", "robust", "serve", "eval",
+         "train", "families", "families_train", "dist_lm", "dist_families")
 
 
 def kernel_of(key: str):
@@ -3990,11 +4000,108 @@ def dryrun_path(device, arch, mesh) -> dict:
     return {"ms": ms, "prediction": pred, "real_bytes": real, "grown": grown}
 
 
-def run(build_s: float) -> dict:
-    """The whole smoke run on the card (``build_s``: the kernel library's
-    build time); returns the kernels record."""
-    import repro_torch.configs as C
-    from repro_torch.configs.paper_workloads import env_map_2d
+# ---------------------------------------------------------------------------
+# The examples path: each walkthrough of examples/torch_*.py on the card, in
+# a process of its own under torch.profiler (CUDA activity), its kernels'
+# launches and device ms read in that process.
+# ---------------------------------------------------------------------------
+
+EXAMPLE_TRAIN_STEPS = 40    # torch_train_lm.py's 113M model: 40 of its default 300 steps
+EXAMPLES = (
+    ("torch_quickstart.py", ()),
+    ("torch_density_map_sampling.py", ("--out", "density_map")),
+    ("torch_pool_serving.py", ()),
+    ("torch_sharded_forest.py", ()),
+    ("torch_failover_demo.py", ()),
+    ("torch_serve_batched.py", ()),
+    ("torch_train_lm.py", ("--steps", str(EXAMPLE_TRAIN_STEPS))),
+)
+EXAMPLE_TIMEOUT = 240       # seconds an example's process may take
+# Makes JAX and the JAX package unimportable, then takes argv as an
+# example's path and its arguments: ``run_example()`` runs it as
+# ``__main__``. The CPU tests run ``NO_JAX_RUNNER + "run_example()"``.
+NO_JAX_RUNNER = """
+import runpy, sys
+class NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"{name}: the torch examples import no JAX")
+sys.meta_path.insert(0, NoJax())
+sys.argv = sys.argv[1:]
+def run_example():
+    runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+# Runs the example on the card under torch.profiler, then prints one line
+# of its kernels' launches, device ms and device records.
+EXAMPLE_RUNNER = NO_JAX_RUNNER + """
+import json
+import torch
+from torch.profiler import ProfilerActivity, profile
+import chip_smoke as S
+wrappers = S.kernel_wrappers()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    run_example()
+    torch.cuda.synchronize()
+events = S.device_events(prof)
+print("EXAMPLE_KERNELS " + json.dumps({
+    "launches": {k: fn.launches for k, fn in wrappers.items()},
+    "device_ms": S.kernel_device_ms(events), "records": S.kernel_records(events)}))
+"""
+
+
+def examples_path(root: Path) -> dict:
+    """Each of ``EXAMPLES`` (file under ``examples/``, arguments) on the
+    card in its own process, one after another, from a scratch directory
+    under ``build/`` (removed after): a line each with its exit code, wall
+    seconds and last lines. Fails if any exits non-zero. Returns the
+    examples' summed ``launches``, ``device_ms`` and ``records`` by kernel
+    and the phase's ``wall_s``."""
+    import shutil
+
+    work = root / "build" / "chip_smoke_examples"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(root / "src"), str(root)])}
+    total = {"launches": dict.fromkeys(KERNEL_SYMBOLS, 0),
+             "device_ms": dict.fromkeys(KERNEL_SYMBOLS, 0.0),
+             "records": dict.fromkeys(KERNEL_SYMBOLS, 0)}
+    failed = []
+    t0 = time.perf_counter()
+    for name, args in EXAMPLES:
+        t = time.perf_counter()
+        try:
+            p = subprocess.run([sys.executable, "-c", EXAMPLE_RUNNER,
+                                str(root / "examples" / name), *args],
+                               cwd=work, env=env, capture_output=True, text=True,
+                               timeout=EXAMPLE_TIMEOUT)
+            rc, out, err = p.returncode, p.stdout, p.stderr
+        except subprocess.TimeoutExpired as e:
+            rc, out, err = (f"killed after {EXAMPLE_TIMEOUT} s",
+                            *(b.decode(errors="replace") if isinstance(b, bytes) else b or ""
+                              for b in (e.stdout, e.stderr)))
+        wall = time.perf_counter() - t
+        lines = out.strip().splitlines()
+        rec = [ln for ln in lines if ln.startswith("EXAMPLE_KERNELS ")]
+        said = [ln for ln in lines if not ln.startswith("EXAMPLE_KERNELS ")]
+        print(f"example {' '.join((name,) + tuple(args))}: exit {rc}, {wall:.3f} s wall "
+              "(its own process: start, library load and the profiler included); "
+              f"last lines: {' | '.join(said[-3:])}", flush=True)
+        if rc != 0 or not rec:
+            failed.append(name)
+            print(out[-2000:] + err[-4000:], flush=True)
+            continue
+        got = json.loads(rec[-1].split(" ", 1)[1])
+        for key, acc in total.items():
+            for k, v in got[key].items():
+                acc[k] += v
+    shutil.rmtree(work, ignore_errors=True)
+    check(not failed, f"every example exits 0 (failed: {failed})")
+    total["wall_s"] = time.perf_counter() - t0
+    return total
+
+
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper by name: its ``launches`` is the count."""
     from repro_torch.kernels.alias_build import alias_build_batched
     from repro_torch.kernels.alias_sample import alias_sample_batched
     from repro_torch.kernels.cdf_scan import cdf_scan
@@ -4007,6 +4114,24 @@ def run(build_s: float) -> dict:
         forest_sample_batched_streams,
     )
     from repro_torch.kernels.sample_tiled import sample_rows
+
+    return {"cdf_scan": cdf_scan, "forest_delta": forest_delta,
+            "forest_sample": forest_sample,
+            "forest_pack": forest_pack,
+            "forest_delta_update": forest_delta_update,
+            "forest_sample_batched": forest_sample_batched,
+            "forest_sample_batched_streams": forest_sample_batched_streams,
+            "alias_build_batched": alias_build_batched,
+            "alias_sample_batched": alias_sample_batched,
+            "sample_rows": sample_rows,
+            "flash_attention": flash_attention}
+
+
+def run(build_s: float) -> dict:
+    """The whole smoke run on the card (``build_s``: the kernel library's
+    build time); returns the kernels record."""
+    import repro_torch.configs as C
+    from repro_torch.configs.paper_workloads import env_map_2d
     from repro_torch.launch.mesh import make_host_mesh
 
     device = torch.device("cuda")
@@ -4021,16 +4146,7 @@ def run(build_s: float) -> dict:
           + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()), flush=True)
     device_profile(device, weights, m, n_draws, gen)
 
-    wrappers = {"cdf_scan": cdf_scan, "forest_delta": forest_delta,
-                "forest_sample": forest_sample,
-                "forest_pack": forest_pack,
-                "forest_delta_update": forest_delta_update,
-                "forest_sample_batched": forest_sample_batched,
-                "forest_sample_batched_streams": forest_sample_batched_streams,
-                "alias_build_batched": alias_build_batched,
-                "alias_sample_batched": alias_sample_batched,
-                "sample_rows": sample_rows,
-                "flash_attention": flash_attention}
+    wrappers = kernel_wrappers()
 
     counts, path_ms = {}, {}
 
@@ -4079,6 +4195,20 @@ def run(build_s: float) -> dict:
         return out
 
     counted("main", main_path, device, weights, m, n_draws, gen)
+    root = Path(__file__).resolve().parent
+    ex = examples_path(root)
+    counts["examples"], path_ms["examples"] = ex["launches"], ex["device_ms"]
+    print(f"launches on the examples path ({ex['wall_s']:.3f} s, host clock, "
+          f"{len(EXAMPLES)} processes): {counts['examples']}", flush=True)
+    print("kernel device ms on the examples path (profiler, in each example's process; "
+          "device records / launches): "
+          + ", ".join(f"{k} {v:.4f} ({ex['records'][k]} / {counts['examples'][k]})"
+                      for k, v in path_ms["examples"].items() if v > 0), flush=True)
+    for name, c in counts["examples"].items():
+        check(c > 0 or name == "flash_attention", f"{name} launched on the examples path")
+        check(c == 0 or path_ms["examples"][name] > 0,
+              f"{name}: device time on the examples path under its symbols")
+    del ex
     import torch.distributed as dist
 
     torch.cuda.set_device(0)
@@ -4115,7 +4245,6 @@ def run(build_s: float) -> dict:
     pool_admission_by_class(rec, device)
     raw["forest_sample_batched_streams"]["at_drain"]["stream_drain"] = pool_profile(
         rec, device, POOL_DRAWS)["stream"]
-    root = Path(__file__).resolve().parent
     counted("robust", robust_path, rec, device, root)
     for name in ("cdf_scan", "forest_sample_batched", "forest_sample_batched_streams",
                  "alias_build_batched", "alias_sample_batched", "sample_rows"):

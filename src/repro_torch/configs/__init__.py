@@ -56,3 +56,8 @@ def get(name: str) -> ModelConfig:
 
 def get_reduced(name: str) -> ModelConfig:
     return _module(name).REDUCED
+
+
+def all_configs() -> dict[str, ModelConfig]:
+    """``{arch: get(arch)}`` over ``ARCHS``, in its order."""
+    return {a: get(a) for a in ARCHS}

@@ -146,6 +146,18 @@ def _all_gather(t: torch.Tensor, D: int, group) -> torch.Tensor:
     return torch.stack(out)
 
 
+def default_mesh(axis: str = "data", device="cuda"):
+    """1-D ``DeviceMesh`` named ``axis`` over every rank of the initialized
+    default process group (JAX's mesh over every local device); its
+    ``get_group()`` is the ``group=`` of this module's functions."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dev = resolve(device)
+    if not dist.is_initialized():
+        raise RuntimeError("default_mesh needs an initialized torch.distributed process group")
+    return init_device_mesh(dev.type, (dist.get_world_size(),), mesh_dim_names=(axis,))
+
+
 def cell_partition(m: int, n_shards: int) -> np.ndarray:
     """Equal-width shard bounds in cell space: shard d owns [b[d], b[d+1])."""
     if m % n_shards:

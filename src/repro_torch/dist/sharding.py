@@ -280,14 +280,46 @@ def param_specs(cfg: ModelConfig, pol: Policy, mesh_shape: dict) -> dict[str, tu
             for name, lf in leaves(cfg).items()}
 
 
+def _placements_of(cfg: ModelConfig, names, mesh, pol: Policy) -> dict[str, list]:
+    """``{name: placements}`` for port parameter names of ``cfg``."""
+    shape = mesh_shape(mesh)
+    lv = leaves(cfg)
+    return {name: placements(port_spec(lv[name], _leaf_spec(lv[name].path, lv[name].shape,
+                                                            pol, shape)), mesh)
+            for name in names}
+
+
 def param_placements(model, mesh, pol: Policy) -> dict[str, list]:
     """``{port parameter name: placements}`` of ``model``'s parameters
     under ``pol`` on ``mesh``."""
-    shape = mesh_shape(mesh)
-    lv = leaves(model.cfg)
-    return {name: placements(port_spec(lv[name], _leaf_spec(lv[name].path, lv[name].shape,
-                                                            pol, shape)), mesh)
-            for name, _ in model.named_parameters()}
+    return _placements_of(model.cfg, [n for n, _ in model.named_parameters()], mesh, pol)
+
+
+def param_shardings(mesh, tree: Any, pol: Policy, cfg: ModelConfig | None = None) -> dict:
+    """``{name: placements}`` for a params struct, keyed as the struct is:
+
+    * an :class:`~repro_torch.models.model.LM`: what
+      :func:`distribute_params` places (:func:`param_placements`);
+    * a ``{port parameter name: tensor}`` dict, such as the AdamW moments
+      ``OptState.m`` / ``.v`` (they shard as their parameters);
+    * one period (``model.layers[p]``) or encoder layer
+      (``model.encoder[p]``), keyed by names relative to it: the per-period
+      subtree JAX's gather hint sees inside its scan (every period places
+      alike: the period axis never shards).
+
+    A dict or a period needs ``cfg``; an LM carries its own."""
+    from repro_torch.models.model import LM, EncoderLayer, Period
+
+    if isinstance(tree, LM):
+        return param_placements(tree, mesh, pol)
+    if cfg is None:
+        raise ValueError("param_shardings of a dict or a period needs cfg=")
+    if isinstance(tree, (Period, EncoderLayer)):
+        pre = "layers.0." if isinstance(tree, Period) else "encoder.0."
+        rel = [n for n, _ in tree.named_parameters()]
+        full = _placements_of(cfg, [pre + n for n in rel], mesh, pol)
+        return {n: full[pre + n] for n in rel}
+    return _placements_of(cfg, list(tree), mesh, pol)
 
 
 @torch.no_grad()

@@ -170,6 +170,10 @@ class Map2DSampler(PackedForestHolder):
             return self._offsets_t[rows.long()] + cols.long()
         return self.row_offsets[np.asarray(rows)] + np.asarray(cols)
 
+    def marginal_weights(self) -> np.ndarray:
+        """The normalized float32 row marginal currently served (host)."""
+        return normalize_weights(self.row_mass)
+
     # ------------------------------------------------------------- sampling
 
     def _uv(self, points2d):

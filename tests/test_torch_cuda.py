@@ -26,9 +26,14 @@ deterministic algorithms; B10 on a rank's local query heads at a nonzero
 head offset; and the LM's dist layer on a (1, 1) mesh over a single-rank
 nccl group (DTensor parameters, hints, a placed decode cache): train steps,
 the hinted flash forward and decode steps bit for bit the unsharded
-model's; and the dry run's per-rank argument bytes (``launch.dryrun`` on
-``meta`` tensors) equal to those of the same state on the card.
+model's; the dry run's per-rank argument bytes (``launch.dryrun`` on
+``meta`` tensors) equal to those of the same state on the card; and
+``examples/torch_quickstart.py`` run on the card in a subprocess, its
+forest inverting the CDF exactly.
 """
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -1525,3 +1530,14 @@ def test_dist_families_on_one_rank_are_bitwise(cuda, nccl_mesh, arch):
         for b_, c in want.items():
             for k, t in c.items():
                 assert torch.equal(whole(got[b_][k]), t), (pol, b_, k)
+
+
+def test_quickstart_example_on_the_card(cuda):
+    """``examples/torch_quickstart.py --device cuda`` in a subprocess: the
+    walkthrough's own asserts hold on the card's kernels."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    p = subprocess.run([sys.executable, str(ROOT / "examples" / "torch_quickstart.py"),
+                        "--device", "cuda"], env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert p.returncode == 0, p.stdout + p.stderr
+    assert "sampling: forest == searchsorted oracle on 65536 draws" in p.stdout
